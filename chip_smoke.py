@@ -11,13 +11,21 @@ non-zero exit on failure:
    in parallel); print the card's name and power limit;
 2. kernel 1 (jitter + gray + normalize) against its plain PyTorch version at
    F = 2048 frames of 128 x 128 and of 112 x 112, with draws that trigger
-   every op, all 24 op orders, hue and gray; and the null path exactly;
+   every op, all 24 op orders, hue and gray, from channel-planar frames and
+   from the channels-last view the main path passes; the one-pixel path
+   (9 x 9) and frames too large for shared memory (288 x 288); and the null
+   path exactly; timed on both layouts;
 3. kernel 2 (pool1d_bwd) against its plain version at every launch shape of
-   one full-width S3D step (post-ReLU zero ties, integer-valued g: exact);
+   one full-width S3D step and at edge shapes that take every tiling of the
+   kernel, in bfloat16 and float32 (post-ReLU zero ties, integer-valued g:
+   exact), timed beside the backward of F.max_pool3d and of F.max_pool2d on
+   the same inputs;
 4. the slice: run_pretrain at full width (S3D, InfoNCE, seq_len 32,
    img_dim 128, batch 32, moco-k 2048, moco-dim 128, bfloat16) for 12 steps
    on a synthetic UCF LMDB, with the launch counts of both kernels, and the
-   epoch checkpoint read back;
+   epoch checkpoint read back; then the step on a device-resident batch, and
+   a torch.profiler window over 3 such steps: each kernel's device time in
+   the step, the device's busy share and the 10 device ops that take most;
 5. one JSON line {"kernels": [...]} with each kernel's launches, error
    against its plain version and times against its bound;
 6. last line: {"ok": true, "device": {...}}.
@@ -45,6 +53,19 @@ JITTER_OPS = {"load": 3, "brightness": 9, "contrast": 12, "saturation": 18,
               "hue": 58, "gray": 3, "normalize": 6, "mean": 6}
 
 T, S, B, K, DIM = 32, 128, 32, 2048, 128
+
+# (P, N, Q, k, s, lo) beside the main path's shapes, one for each tiling of
+# the pool kernel (kernels/pool.py plan): whole planes with 16-byte staging
+# at Q = 1, 2k, 4, 8k and odd N; whole planes staged element by element;
+# planes above the tile budget, tiled along Q with and without 16-byte
+# staging (img_dim 224's MaxPool_2a H pool is 112 x 112); windows other
+# than S3D's three, which the kernel reads at run time
+POOL_EDGE_SHAPES = [(300, 13, 1, 3, 1, 1), (77, 17, 4, 2, 2, 0),
+                    (50, 11, 6, 3, 2, 1), (30, 15, 40, 3, 2, 1),
+                    (21, 9, 7, 2, 2, 0), (5, 63, 63, 3, 2, 1),
+                    (3, 112, 112, 3, 2, 1), (2, 120, 121, 3, 1, 1),
+                    (2, 100, 100, 2, 2, 0), (40, 10, 8, 4, 2, 1),
+                    (64, 9, 1, 2, 1, 0)]
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -99,6 +120,11 @@ def jitter_inputs(frames, size, dev, gen):
     return x, fb, fc, fs, fh, gray, orders
 
 
+def channels_last(x):
+    """The same [F, 3, S1, S2] frames as a view of channels-last memory."""
+    return x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
 def jitter_ops(frames, size, fc, fh, gray, orders):
     """float32 operations the kernel does on these inputs (JITTER_OPS)."""
     o = JITTER_OPS
@@ -128,8 +154,11 @@ def phase_jitter(dev):
 
     gen = torch.Generator(dev).manual_seed(0)
     result = {}
-    for frames, size in ((2048, 128), (2048, 112)):
+    # F = 2048 is the main path's launch; 9 x 9 takes the one-pixel path and
+    # 288 x 288 (243 KB a frame) reads device memory instead of staging
+    for frames, size in ((2048, 128), (2048, 112), (64, 9), (16, 288)):
         args = jitter_inputs(frames, size, dev, gen)
+        cl = (channels_last(args[0]),) + args[1:]
         got = fused_jitter_normalize(*args).float()
         want = jitter_normalize_plain(*args).float()
         torch.cuda.synchronize()
@@ -138,14 +167,18 @@ def phase_jitter(dev):
         diff = (got - want).abs()
         over = float((diff > ulp).float().mean())
         max_err = float(diff.max())
+        same = torch.equal(fused_jitter_normalize(*cl).float(), got)
         print(f"[jitter] F={frames} S={size}: {over:.2e} of outputs more than "
               f"1 bf16 ULP off (cap 1e-3, hue-branch ties), max abs err "
-              f"{max_err:.4g}", flush=True)
+              f"{max_err:.4g}; channels-last input gives the planar result "
+              f"bit for bit: {same}", flush=True)
         check(over <= 1e-3, "jitter kernel disagrees with its plain version")
+        check(same, "jitter kernel differs between input layouts")
         if size == 128:
             x, fb, fc, fs, fh, gray, orders = args
             result = {"max_abs_err": max_err,
-                      "ms": cuda_ms(lambda: fused_jitter_normalize(*args)),
+                      "ms_planar": cuda_ms(lambda: fused_jitter_normalize(*args)),
+                      "ms": cuda_ms(lambda: fused_jitter_normalize(*cl)),
                       "plain_ms": cuda_ms(lambda: jitter_normalize_plain(*args),
                                           reps=3, warmup=1)}
             nbytes = x.numel() * (1 + 2) + frames * 6 * 4
@@ -155,22 +188,26 @@ def phase_jitter(dev):
             result.update(bound_ms=max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops else "operations",
                           bytes=nbytes, ops=ops)
-            print(f"[jitter] kernel {result['ms']:.4f} ms, plain "
-                  f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} "
-                  f"ms ({result['bound_by']}: {nbytes} B, {ops} f32 ops)",
-                  flush=True)
+            print(f"[jitter] kernel {result['ms']:.4f} ms from channels-last "
+                  f"frames (the main path's), {result['ms_planar']:.4f} ms from "
+                  f"planar frames; plain {result['plain_ms']:.4f} ms, bound "
+                  f"{result['bound_ms']:.4f} ms ({result['bound_by']}: {nbytes} "
+                  f"B, {ops} f32 ops)", flush=True)
 
     # the null path (factors 1, fh 0, gray -1, identity normalize): exact
-    x = torch.randint(0, 256, (64, 3, 128, 128), dtype=torch.uint8, device=dev,
-                      generator=gen)
-    one = torch.ones(64, device=dev)
-    null = (x, one, one, one, one * 0, -one.to(torch.int32),
-            torch.full((64,), 228, dtype=torch.int32, device=dev))
-    got = fused_jitter_normalize(*null, out_dtype=torch.float32,
-                                 mean=(0, 0, 0), std=(1, 1, 1))
-    check(torch.equal(got, x.float() * (1.0 / 255.0)),
-          "jitter kernel's null path is not exact")
-    print("[jitter] null path exact", flush=True)
+    for size in (128, 9, 288):
+        x = torch.randint(0, 256, (8, 3, size, size), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        one = torch.ones(8, device=dev)
+        params = (one, one, one, one * 0, -one.to(torch.int32),
+                  torch.full((8,), 228, dtype=torch.int32, device=dev))
+        for frames in (x, channels_last(x)):
+            got = fused_jitter_normalize(frames, *params, out_dtype=torch.float32,
+                                         mean=(0, 0, 0), std=(1, 1, 1))
+            check(torch.equal(got, x.float() * (1.0 / 255.0)),
+                  f"jitter kernel's null path is not exact at {size} x {size}")
+    print("[jitter] null path exact (128, 9 and 288 square; planar and "
+          "channels-last)", flush=True)
     return result
 
 
@@ -213,16 +250,32 @@ def phase_pool(dev):
           f"{len(shapes)} shapes", flush=True)
     check(n_launch == 37, "expected 37 pool backward launches per step")
     gen = torch.Generator(dev).manual_seed(1)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "max_abs_err": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+
+    def inputs(p, n, q, k, s, lo, dtype):
+        x = torch.relu(torch.randn(p, n, q, device=dev, generator=gen) - 0.5
+                       ).to(dtype)  # post-ReLU: many exact zero ties
+        out = pool.pool1d_fwd(x, 1, k, s, lo)
+        g = torch.randint(-4, 5, out.shape, device=dev, generator=gen).to(dtype)
+        return x, out, g
+
+    # every tiling of the kernel (kernels/pool.py plan), in both dtypes
+    for p, n, q, k, s, lo in POOL_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, out, g = inputs(p, n, q, k, s, lo, dtype)
+            check(torch.equal(pool.pool1d_bwd(x, out, g, k, s, lo),
+                              pool.pool1d_bwd_plain(x, out, g, k, s, lo)),
+                  f"pool1d_bwd kernel differs from its plain version at edge "
+                  f"shape {(p, n, q, k, s, lo)} in {dtype}")
+    print(f"[pool] {len(POOL_EDGE_SHAPES)} edge shapes exact in bfloat16 and "
+          f"float32", flush=True)
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "pool3d_ms": 0.0,
+           "pool2d_ms": 0.0, "max_abs_err": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    pool2d_ok = True
     configs = set()
     for (p, n, q, k, s, lo), count in sorted(shapes.items()):
         configs.add((k, s, lo))
-        x = torch.relu(torch.randn(p, n, q, device=dev, generator=gen) - 0.5
-                       ).to(torch.bfloat16)  # post-ReLU: many exact zero ties
-        out = pool.pool1d_fwd(x, 1, k, s, lo)
-        g = torch.randint(-4, 5, out.shape, device=dev, generator=gen
-                          ).to(torch.bfloat16)
+        x, out, g = inputs(p, n, q, k, s, lo, torch.bfloat16)
         got = pool.pool1d_bwd(x, out, g, k, s, lo)
         want = pool.pool1d_bwd_plain(x, out, g, k, s, lo)
         err = float((got.float() - want.float()).abs().max())
@@ -237,12 +290,27 @@ def phase_pool(dev):
                         reps=3, warmup=1)
         x5 = x.view(1, p, n, q, 1).requires_grad_(True)
         out5 = F.max_pool3d(x5, (k, 1, 1), (s, 1, 1), (lo, 0, 0))
-        g5 = g.view(out5.shape)
-        lib = cuda_ms(lambda: torch.autograd.grad(out5, x5, g5,
-                                                  retain_graph=True))
+        lib3 = cuda_ms(lambda: torch.autograd.grad(out5, x5, g.view(out5.shape),
+                                                   retain_graph=True))
+        # the same function as a 2-D pool over the zero-copy [P, 1, N, Q]
+        # view (first-max tie routing too); kept only if it runs everywhere
+        lib2 = float("nan")
+        if pool2d_ok:
+            try:
+                x4 = x.view(p, 1, n, q).requires_grad_(True)
+                out4 = F.max_pool2d(x4, (k, 1), (s, 1), (lo, 0))
+                lib2 = cuda_ms(lambda: torch.autograd.grad(
+                    out4, x4, g.view(out4.shape), retain_graph=True))
+                del x4, out4
+            except RuntimeError as e:
+                pool2d_ok = False
+                print(f"[pool] F.max_pool2d backward fails at "
+                      f"{(p, n, q, k, s, lo)}, dropped as a yardstick: {e}",
+                      flush=True)
         tot["ms"] += count * ms
         tot["plain_ms"] += count * plain
-        tot["library_ms"] += count * lib
+        tot["pool3d_ms"] += count * lib3
+        tot["pool2d_ms"] += count * lib2
         # a compare per window tap, an add per covering window (float32)
         ops = p * m * q * k + p * n * q * -(-k // s)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -252,16 +320,22 @@ def phase_pool(dev):
         tot["ops_ms"] += count * t_ops
         print(f"[pool] P={p} N={n} Q={q} k={k} s={s} lo={lo} x{count}: exact; "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, max_pool3d backward "
-              f"{lib:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms",
-              flush=True)
-        del x, out, g, got, want, x5, out5, g5
+              f"{lib3:.4f} ms, max_pool2d backward {lib2:.4f} ms, bound "
+              f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+        del x, out, g, got, want, x5, out5
     check({(3, 2, 1), (3, 1, 1), (2, 2, 0)} <= configs,
           "missing an S3D pool configuration")
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    libs = {"F.max_pool3d backward": tot["pool3d_ms"]}
+    if pool2d_ok:
+        libs["F.max_pool2d backward"] = tot["pool2d_ms"]
+    tot["library"] = min(libs, key=libs.get)
+    tot["library_ms"] = libs[tot["library"]]
     print(f"[pool] per step: kernel {tot['ms']:.4f} ms, plain "
           f"{tot['plain_ms']:.4f} ms, max_pool3d backward "
-          f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
-          flush=True)
+          f"{tot['pool3d_ms']:.4f} ms, max_pool2d backward "
+          f"{tot['pool2d_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; "
+          f"library_ms is {tot['library']}", flush=True)
     torch.cuda.empty_cache()
     return tot
 
@@ -363,7 +437,49 @@ def phase_slice(dev, work):
     print(f"[slice] device-resident batch: median step {dev_ms:.1f} ms = "
           f"{2 * B / dev_ms * 1e3:.1f} clips/s (preprocess + step, synchronized)",
           flush=True)
-    return counts, steps
+    step_kernels = profile_steps(
+        lambda: pretrain_step(model, opt, pre(batch, gen)["seq"], 1e-3, cfg), 3)
+    return counts, steps, step_kernels
+
+
+def profile_steps(step, n):
+    """torch.profiler over n synchronized steps: prints the device busy
+    share, the device time per step of the 10 device ops that take most and
+    of the port's two kernels; returns the kernels' ms per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(spans, "the profiler recorded no device activity")
+    per_name, busy, reach = {}, 0.0, -math.inf
+    for start, end, name in spans:
+        per_name[name] = per_name.get(name, 0.0) + (end - start)
+        busy += max(0.0, end - max(start, reach))  # union of device intervals
+        reach = max(reach, end)
+    print(f"[profile] {n} device-resident steps: device busy {busy / 1e3:.1f} ms "
+          f"of {wall_us / 1e3:.1f} ms wall = {busy / wall_us:.1%} busy; "
+          f"{len(spans)} device ops, {sum(per_name.values()) / 1e3 / n:.2f} ms of "
+          f"device op time per step", flush=True)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    for name, us in top:
+        print(f"[profile]   {us / 1e3 / n:8.3f} ms/step  {name[:110]}", flush=True)
+    kernels = {key: sum(us for name, us in per_name.items() if tag in name) / 1e3 / n
+               for key, tag in (("jitter", "jitter_kernel"),
+                                ("pool1d_bwd", "pool1d_bwd_kernel"))}
+    print(f"[profile] the port's kernels in the step (ms per step): {kernels}",
+          flush=True)
+    check(all(v > 0 for v in kernels.values()),
+          "the profiler saw no launch of one of the port's kernels")
+    return kernels
 
 
 def main():
@@ -392,7 +508,7 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        counts, steps = phase_slice(dev, work)
+        counts, steps, step_kernels = phase_slice(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -402,17 +518,21 @@ def main():
              replaces="coclr_tpu/ops/pallas_aug.py:146",
              launches=counts["jitter"], launches_per_step=counts["jitter"] / steps,
              max_abs_err=jit["max_abs_err"], ms=jit["ms"], kernel_ms=jit["ms"],
+             ms_planar=jit["ms_planar"], ms_in_step=step_kernels["jitter"],
              plain_ms=jit["plain_ms"], bound_ms=jit["bound_ms"],
              bound_by=jit["bound_by"], library_ms=None,
-             shape="F=2048 frames, 3x128x128 uint8 -> bfloat16"),
+             shape="F=2048 frames, 3x128x128 uint8 channels-last view -> "
+                   "bfloat16"),
         dict(name="pool1d_bwd", route="cuda",
              source="coclr_tpu_torch/csrc/pool1d_bwd.cu",
              replaces="coclr_tpu/ops/pallas_pool.py:106",
              launches=counts["pool1d_bwd"],
              launches_per_step=counts["pool1d_bwd"] / steps,
              max_abs_err=pool["max_abs_err"], ms=pool["ms"], kernel_ms=pool["ms"],
+             ms_in_step=step_kernels["pool1d_bwd"],
              plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
              bound_by=pool["bound_by"], library_ms=pool["library_ms"],
+             library=pool["library"],
              shape="sum over the 37 launches of one full-width S3D step, bfloat16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,16 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled by nvcc into `build/kernels/lib<name>.so`
-at the repository root (a plain C interface, no PyTorch headers, so a build
-takes seconds) and loaded with ctypes. Nothing is built or loaded at import
-time: the first launch builds its library, and `build_all` builds every
-library at once with one nvcc process per source, all started together.
+Each `csrc/<name>.cu` is compiled by nvcc into
+`build/kernels/lib<name>-<key>.so` at the repository root (a plain C
+interface, no PyTorch headers, so a build takes seconds) and loaded with
+ctypes. The key hashes the source, the local headers it includes and the
+nvcc flags, so a change to any of them builds a new library. Nothing is
+built or loaded at import time: the first launch builds its library, and
+`build_all` builds every library at once with one nvcc process per source,
+all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,6 +26,34 @@ CSRC = os.path.join(_REPO, "coclr_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(source: str) -> List[str]:
+    """The files that `source` includes with #include "...", found beside
+    the including file, and theirs in turn (sorted paths)."""
+    found, todo = set(), [source]
+    while todo:
+        path = todo.pop()
+        with open(path) as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), name)
+            if os.path.exists(dep) and dep not in found:
+                found.add(dep)
+                todo.append(dep)
+    return sorted(found)
+
+
+def build_key(source: str, flags: Sequence[str]) -> str:
+    """Hash of the source, its local headers and the nvcc flags."""
+    h = hashlib.sha256("\0".join(flags).encode())
+    for path in [source] + local_headers(source):
+        with open(path, "rb") as f:
+            h.update(b"\0" + os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -55,34 +88,30 @@ class CudaKernel:
 
     @property
     def library(self) -> str:
-        return os.path.join(BUILD_DIR, "lib%s.so" % self.name)
-
-    def _stale(self) -> bool:
-        return (not os.path.exists(self.library)
-                or os.path.getmtime(self.library) < os.path.getmtime(self.source))
-
-    def _compile_cmd(self, out: str) -> List[str]:
-        return [_nvcc(), *NVCC_FLAGS, "-o", out, self.source]
+        return os.path.join(BUILD_DIR, "lib%s-%s.so"
+                            % (self.name, build_key(self.source, NVCC_FLAGS)))
 
     def start_build(self):
-        """Start nvcc for this library if it is missing or older than its
-        source; returns (process, temporary output) or None."""
-        if not self._stale():
+        """Start nvcc for this library unless it is built; returns
+        (process, temporary output, library) or None."""
+        library = self.library
+        if os.path.exists(library):
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = "%s.%d.tmp" % (self.library, os.getpid())
-        proc = subprocess.Popen(self._compile_cmd(tmp), stdout=subprocess.PIPE,
+        tmp = "%s.%d.tmp" % (library, os.getpid())
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        return proc, tmp
+        return proc, tmp, library
 
     def finish_build(self, started) -> None:
         if started is None:
             return
-        proc, tmp = started
+        proc, tmp, library = started
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s:\n%s" % (self.source, log))
-        os.replace(tmp, self.library)
+        os.replace(tmp, library)
 
     def _load(self):
         with self._lock:

@@ -2,9 +2,12 @@
 
 `fused_jitter_normalize` keeps the signature and layout of the TPU kernel
 it replaces (coclr_tpu/ops/pallas_aug.py::fused_jitter_normalize): uint8
-frames [F, 3, S1, S2] in, [F, 3, S1, S2] out. On a CUDA tensor it launches
-the CUDA kernel; on a CPU tensor it runs `jitter_normalize_plain`, the same
-function in plain PyTorch, which the tests and the on-card comparison use.
+frames [F, 3, S1, S2] in, [F, 3, S1, S2] out. The frames may be a strided
+view: the kernel reads channel-planar frames and channels-last frames (the
+[F, S1, S2, 3] -> [F, 3, S1, S2] permute view) in place. On a CUDA tensor
+it launches the CUDA kernel; on a CPU tensor it runs
+`jitter_normalize_plain`, the same function in plain PyTorch, which the
+tests and the on-card comparison use.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ FIXED_ORDER_CODE = 228  # packed [0, 1, 2, 3]: brightness, contrast, saturation,
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
+_I = ctypes.c_int
 KERNEL = register(CudaKernel(
     "jitter", "coclr_jitter_normalize",
-    [_P] * 8 + [ctypes.c_int] * 3 + [_F] * 6 + [_P]))
+    [_P] * 8 + [_I, _I, ctypes.c_longlong, _I, _I] + [_F] * 6 + [_P]))
 
 
 def _luma(r, g, b):
@@ -104,10 +108,30 @@ def jitter_normalize_plain(x_planar_u8, fb, fc, fs, fh, gray_sel, orders,
     return out.to(out_dtype)
 
 
+def frame_layout(x):
+    """(frame stride, channels_last) for the kernel when each frame of
+    x [F, 3, S1, S2] is one contiguous channel-planar or channels-last run,
+    else None."""
+    f, _, s1, s2 = x.shape
+    hw = s1 * s2
+    sizes, strides = x.shape[1:], x.stride()[1:]
+    same = lambda want: all(n == 1 or st == w
+                            for n, st, w in zip(sizes, strides, want))
+    fstride = x.stride(0) if f > 1 else 3 * hw
+    if fstride < 3 * hw:
+        return None
+    if same((hw, s2, 1)):
+        return fstride, False
+    if same((1, 3 * s2, 3)):
+        return fstride, True
+    return None
+
+
 def fused_jitter_normalize(x_planar_u8, fb, fc, fs, fh, gray_sel, orders=None,
                            out_dtype=torch.bfloat16, mean=IMAGENET_MEAN,
                            std=IMAGENET_STD):
-    """x_planar_u8: [F, 3, S1, S2] uint8. fb/fc/fs/fh: [F] float32 per-frame
+    """x_planar_u8: [F, 3, S1, S2] uint8, contiguous or a view whose frames
+    are channel-planar or channels-last runs. fb/fc/fs/fh: [F] float32 per-frame
     jitter factors (1/1/1/0 = identity). gray_sel: [F] int32, -1 keeps
     colour, else the channel copied to all three. orders: [F] int32 packed
     per-frame op orders (None = fixed brightness, contrast, saturation, hue).
@@ -132,7 +156,12 @@ def fused_jitter_normalize(x_planar_u8, fb, fc, fs, fh, gray_sel, orders=None,
                                       orders, out_dtype, mean, std)
     if dev.type != "cuda":
         raise ValueError("fused_jitter_normalize runs on cuda or cpu, not %s" % dev)
-    x = x_planar_u8.contiguous()
+    x = x_planar_u8
+    layout = frame_layout(x)
+    if layout is None:
+        x = x.contiguous()
+        layout = frame_layout(x)
+    fstride, channels_last = layout
     fb, fc, fs, fh = [p.to(torch.float32).contiguous() for p in (fb, fc, fs, fh)]
     gray_sel = gray_sel.to(torch.int32).contiguous()
     orders = orders.to(torch.int32).contiguous()
@@ -144,6 +173,7 @@ def fused_jitter_normalize(x_planar_u8, fb, fc, fs, fh, gray_sel, orders=None,
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(x.data_ptr(), out.data_ptr(), fb.data_ptr(), fc.data_ptr(),
                       fs.data_ptr(), fh.data_ptr(), gray_sel.data_ptr(),
-                      orders.data_ptr(), f, hw, int(out_dtype == torch.bfloat16),
+                      orders.data_ptr(), f, hw, fstride, int(channels_last),
+                      int(out_dtype == torch.bfloat16),
                       *[float(m) for m in mean], *[float(s) for s in std], stream)
     return out

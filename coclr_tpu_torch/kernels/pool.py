@@ -12,7 +12,9 @@ not a Pallas kernel), the kernel backward.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +25,47 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = register(CudaKernel(
     "pool1d_bwd", "coclr_pool1d_bwd",
-    [_P] * 4 + [ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, _P]))
+    [_P] * 4 + [ctypes.c_longlong] + [_I] * 10 + [_P]))
+
+# Shared memory one block of the kernel stages (x, out, g and the int8 taps
+# of its tile): small enough for six blocks on an SM of 228 KB.
+SLAB_BYTES = 36 * 1024
+
+
+class Plan(NamedTuple):
+    pt: int    # planes per block
+    qt: int    # columns per block (q: whole planes)
+    vec: bool  # every run of every tile starts 16-byte aligned
+
+
+@functools.lru_cache(maxsize=256)
+def plan(p: int, n: int, m: int, q: int, itemsize: int) -> Plan:
+    """The tile of one block of the kernel for x [p, n, q] and out/g
+    [p, m, q]: as many whole [n, q] planes as fit SLAB_BYTES (so that the
+    tile's x, out and g are three contiguous runs), rounded so that every
+    run starts on 16 bytes (for q == 1 also to 16 bytes of planes, which
+    the kernel stages transposed); or, where one plane does not fit, qt
+    columns of one plane."""
+    vec = 16 // itemsize
+    col_bytes = itemsize * (n + 2 * m) + m  # one column of one plane
+    room = SLAB_BYTES - 48                  # three regions padded to 16 B
+    if q * col_bytes <= room:
+        pt = min(p, room // (q * col_bytes))
+        step = math.lcm(vec // math.gcd(n * q, vec), vec // math.gcd(m * q, vec))
+        if q == 1:  # the kernel transposes 16-byte multiples of planes
+            step = math.lcm(step, vec)
+        if pt >= step:
+            pt -= pt % step
+        aligned = pt == p or ((pt * n * q) % vec == 0
+                              and (pt * m * q) % vec == 0)
+        return Plan(pt, q, aligned)
+    qt = room // col_bytes
+    if qt < 1:
+        raise ValueError("pool1d_bwd: a pooled axis of %d does not fit the "
+                         "kernel's tile" % n)
+    if qt >= vec:
+        qt -= qt % vec
+    return Plan(1, qt, q % vec == 0 and qt % vec == 0)
 
 
 def pool1d_fwd(x, dim: int, k: int, s: int, lo: int):
@@ -36,12 +78,14 @@ def pool1d_fwd(x, dim: int, k: int, s: int, lo: int):
 
 def pool1d_bwd_plain(x, out, g, k: int, s: int, lo: int):
     """Plain PyTorch version of the kernel: each window's g goes to its first
-    tap equal to the window max; taps are added in increasing offset."""
+    tap equal to the window max (nowhere if none is); taps are added in
+    increasing offset."""
     p, n, q = x.shape
     m = out.shape[1]
     xp = F.pad(x.float(), [0, 0, lo, lo], value=float("-inf"))
     taps = xp.unfold(1, k, s)[:, :m]                       # [P, M, Q, k]
-    first = (taps == out.float().unsqueeze(-1)).to(torch.uint8).argmax(dim=-1)
+    hit = taps == out.float().unsqueeze(-1)
+    first = torch.where(hit.any(dim=-1), hit.to(torch.uint8).argmax(dim=-1), -1)
     gf = g.float()
     dxp = torch.zeros((p, n + 2 * lo, q), dtype=torch.float32, device=x.device)
     for d in range(k):
@@ -71,14 +115,23 @@ def pool1d_bwd(x, out, g, k: int, s: int, lo: int):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError("the CUDA kernel takes bfloat16 or float32, not %s"
                         % x.dtype)
+    if q >= 2 ** 31:
+        raise ValueError("pool1d_bwd: Q = %d does not fit 32 bits" % q)
     x, out, g = x.contiguous(), out.contiguous(), g.contiguous()
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.launch(x.data_ptr(), out.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                      p, n, m, q, k, s, lo, int(x.dtype == torch.bfloat16), stream)
+    pl = plan(p, n, m, q, x.element_size())
+    ptrs = [t.data_ptr() for t in (x, out, g, dx)]
+    vec = pl.vec and all(a % 16 == 0 for a in ptrs)
+    args = (*ptrs, p, n, m, q, k, s, lo, pl.pt, pl.qt, int(vec),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        KERNEL.launch(*args)
+    else:
+        with torch.cuda.device(x.device):
+            KERNEL.launch(*args)
     return dx
 
 

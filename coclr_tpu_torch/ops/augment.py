@@ -94,7 +94,8 @@ def apply_aug(seq_u8, params: Dict[str, torch.Tensor], dtype=torch.bfloat16,
     m = b * n
     rep = lambda v: v.repeat_interleave(L)
     gray_sel = torch.where(rep(params["do_gray"]), params["ch"], -1)
-    xp = seq_u8.reshape(m * L, s1, s2, c).permute(0, 3, 1, 2).contiguous()
+    # a channels-last view: the kernel reads it in place
+    xp = seq_u8.reshape(m * L, s1, s2, c).permute(0, 3, 1, 2)
     x = fused_jitter_normalize(
         xp, rep(params["fb"]), rep(params["fc"]), rep(params["fs"]),
         rep(params["fh"]), gray_sel.to(torch.int32), rep(params["orders"]),

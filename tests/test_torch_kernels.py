@@ -7,6 +7,8 @@ kernels are held against these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,3 +208,84 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         tpool.pool1d_bwd(torch.zeros(2, 8, 3), torch.zeros(2, 3, 3),
                          torch.zeros(2, 3, 3), 3, 2, 1)
+
+
+def test_jitter_channels_last_view_matches_planar():
+    """The channels-last view apply_aug passes (no planar copy) gives the
+    planar call's result bit for bit, and the wrapper reads both layouts in
+    place."""
+    from coclr_tpu_torch.kernels.jitter import frame_layout
+
+    args = [torch.from_numpy(a) for a in _frames(5, 6, 12, 10)]
+    planar = args[0]
+    cl = planar.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    assert not cl.is_contiguous()
+    assert frame_layout(planar) == (360, False)
+    assert frame_layout(cl) == (360, True)
+    assert frame_layout(planar[:, :, ::2]) is None
+    want = fused_jitter_normalize(planar, *args[1:], out_dtype=torch.float32)
+    got = fused_jitter_normalize(cl, *args[1:], out_dtype=torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_build_key_covers_source_headers_and_flags(tmp_path, monkeypatch):
+    """A kernel library is keyed on its source, the local headers it
+    includes and the nvcc flags, so a change to any of them rebuilds it."""
+    from coclr_tpu_torch.kernels import build
+
+    src, hdr, deep = tmp_path / "k.cu", tmp_path / "a.cuh", tmp_path / "b.cuh"
+    src.write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
+    hdr.write_text('#pragma once\n#include "b.cuh"\n')
+    deep.write_text("#pragma once\n")
+    assert build.local_headers(str(src)) == sorted([str(hdr), str(deep)])
+    flags = list(build.NVCC_FLAGS)
+    key = build.build_key(str(src), flags)
+    assert key == build.build_key(str(src), flags)
+    assert build.build_key(str(src), flags + ["-lineinfo"]) != key
+    deep.write_text("#pragma once\nint b;\n")
+    assert build.build_key(str(src), flags) != key
+    kernel = build.KERNELS["pool1d_bwd"]
+    before = kernel.library
+    monkeypatch.setattr(build, "NVCC_FLAGS", flags + ["-DCHANGED"])
+    assert kernel.library != before
+    assert build.local_headers(kernel.source) == [
+        os.path.join(build.CSRC, "common.cuh")]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_pool_plan_tiles_fit_and_align(itemsize):
+    """Every tile fits the shared-memory budget, and a tile marked for
+    16-byte copies starts every run of x, out and g on 16 bytes."""
+    vec = 16 // itemsize
+    shapes = [(1048576, 64, 1), (32768, 64, 64), (15360, 16, 256), (300, 13, 1),
+              (5, 63, 63), (3, 112, 112), (2, 120, 121), (7, 5, 3), (3, 2000, 5)]
+    for p, n, q in shapes:
+        for k, s, lo in [(3, 2, 1), (3, 1, 1), (2, 2, 0)]:
+            m = (n + 2 * lo - k) // s + 1
+            pl = tpool.plan(p, n, m, q, itemsize)
+            assert 1 <= pl.pt <= p and 1 <= pl.qt <= q
+            tile = pl.pt * pl.qt
+            need = sum(-(-b // 16) * 16 for b in (tile * n * itemsize,
+                                                 tile * m * itemsize,
+                                                 tile * m * itemsize)) + tile * m
+            assert need <= tpool.SLAB_BYTES
+            if pl.qt < q:
+                assert pl.pt == 1 and (pl.qt % vec == 0 or pl.qt < vec)
+            if pl.vec:
+                starts = range(0, p, pl.pt) if pl.qt == q else range(0, q, pl.qt)
+                size = (n * q, m * q) if pl.qt == q else (q, q)
+                assert all(a * sz % vec == 0 for a in starts for sz in size)
+    with pytest.raises(ValueError):  # one column of the plane is too long
+        tpool.plan(1, 9000, 9000, 1, itemsize)
+
+
+def test_pool1d_bwd_plain_routes_nowhere_without_a_max_like_pallas():
+    """A window whose max equals none of its taps (a NaN in x) sends its g
+    nowhere, in the plain version and in the Pallas kernel."""
+    x = np.zeros((1, 6, 2), np.float32)
+    x[0, 2, 0] = np.nan
+    out = np.zeros((1, 3, 2), np.float32)
+    g = np.arange(1, 7, dtype=np.float32).reshape(1, 3, 2)
+    want = np.asarray(jax_pool1d_bwd(*map(jnp.asarray, (x, out, g)), 3, 2, 1))
+    got = tpool.pool1d_bwd(*map(torch.from_numpy, (x, out, g)), 3, 2, 1).numpy()
+    np.testing.assert_array_equal(got, want)
