@@ -10,25 +10,39 @@ non-zero exit on failure:
 1. build both CUDA kernels from coclr_tpu_torch/csrc (one nvcc per source,
    in parallel); print the card's name and power limit;
 2. kernel 1 (jitter + gray + normalize) against its plain PyTorch version at
-   F = 2048 frames of 128 x 128 and of 112 x 112, with draws that trigger
-   every op, all 24 op orders, hue and gray, from channel-planar frames and
-   from the channels-last view the main path passes; the one-pixel path
-   (9 x 9) and frames too large for shared memory (288 x 288); and the null
-   path exactly; timed on both layouts;
+   F = 2048 frames of 128 x 128 (the InfoNCE / UberNCE launch), F = 4096
+   (the CoCLR launch: RGB and flow frames together) and 2048 of 112 x 112,
+   with draws that trigger every op, all 24 op orders, hue and gray, from
+   channel-planar frames and from the channels-last view the main path
+   passes; the one-pixel path (9 x 9) and frames too large for shared
+   memory (288 x 288); and the null path exactly; timed on both layouts;
 3. kernel 2 (pool1d_bwd) against its plain version at every launch shape of
    one full-width S3D step and at edge shapes that take every tiling of the
    kernel, in bfloat16 and float32 (post-ReLU zero ties, integer-valued g:
    exact), timed beside the backward of F.max_pool3d and of F.max_pool2d on
    the same inputs;
-4. the slice: run_pretrain at full width (S3D, InfoNCE, seq_len 32,
-   img_dim 128, batch 32, moco-k 2048, moco-dim 128, bfloat16) for 12 steps
-   on a synthetic UCF LMDB, with the launch counts of both kernels, and the
-   epoch checkpoint read back; then the step on a device-resident batch, and
-   a torch.profiler window over 3 such steps: each kernel's device time in
-   the step, the device's busy share and the 10 device ops that take most;
-5. one JSON line {"kernels": [...]} with each kernel's launches, error
-   against its plain version and times against its bound;
-6. last line: {"ok": true, "device": {...}}.
+4. InfoNCE: run_pretrain at full width (S3D, seq_len 32, img_dim 128,
+   batch 32, moco-k 2048, moco-dim 128, bfloat16) for 12 steps on a
+   synthetic two-stream UCF LMDB, with the launch counts of both kernels,
+   and the epoch checkpoint read back; then the step on a device-resident
+   batch, and a torch.profiler window over 3 such steps: each kernel's
+   device time in the step, the device's busy share and the 10 device ops
+   that take most;
+5. UberNCE: run_pretrain(model='ubernce') at the same width for 6 steps;
+   launches per step, and the batch labels in the queue rows written;
+6. CoCLR loop: run_pretrain(model='coclr', ucf101-2stream-2clip) at full
+   width (topk 5) for 12 steps, initialised from phase 4's checkpoint and a
+   second, untrained one as the sampler. With K = 2048 and B = 32 the
+   queue-fill gate stays closed: encoder_q's parameters and the sampler
+   (parameters and BatchNorm buffers) stay bit-identical to their files,
+   queue_label is 1 in the rows written and -1 after; launches per step;
+   the epoch checkpoint read back strictly;
+7. CoCLR step with a full queue on a device-resident batch (sibling masks,
+   top-k mining, the self-drop, Adam), timed, and the profiler window;
+8. one JSON line {"kernels": [...]} with each kernel's launches (per path
+   and per step), error against its plain version and times against its
+   bound;
+9. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -154,9 +168,11 @@ def phase_jitter(dev):
 
     gen = torch.Generator(dev).manual_seed(0)
     result = {}
-    # F = 2048 is the main path's launch; 9 x 9 takes the one-pixel path and
-    # 288 x 288 (243 KB a frame) reads device memory instead of staging
-    for frames, size in ((2048, 128), (2048, 112), (64, 9), (16, 288)):
+    # F = 2048 is the InfoNCE launch and F = 4096 CoCLR's; 9 x 9 takes the
+    # one-pixel path and 288 x 288 (243 KB a frame) reads device memory
+    # instead of staging
+    for frames, size in ((2048, 128), (4096, 128), (2048, 112), (64, 9),
+                         (16, 288)):
         args = jitter_inputs(frames, size, dev, gen)
         cl = (channels_last(args[0]),) + args[1:]
         got = fused_jitter_normalize(*args).float()
@@ -176,23 +192,27 @@ def phase_jitter(dev):
         check(same, "jitter kernel differs between input layouts")
         if size == 128:
             x, fb, fc, fs, fh, gray, orders = args
-            result = {"max_abs_err": max_err,
-                      "ms_planar": cuda_ms(lambda: fused_jitter_normalize(*args)),
-                      "ms": cuda_ms(lambda: fused_jitter_normalize(*cl)),
-                      "plain_ms": cuda_ms(lambda: jitter_normalize_plain(*args),
-                                          reps=3, warmup=1)}
+            result[frames] = r = {
+                "max_abs_err": max_err,
+                "ms_planar": cuda_ms(lambda: fused_jitter_normalize(*args)),
+                "ms": cuda_ms(lambda: fused_jitter_normalize(*cl)),
+                "plain_ms": cuda_ms(lambda: jitter_normalize_plain(*args),
+                                    reps=3, warmup=1)}
             nbytes = x.numel() * (1 + 2) + frames * 6 * 4
             ops = jitter_ops(frames, size, fc, fh, gray, orders)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_OPS_PER_S * 1e3
-            result.update(bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
-                          bytes=nbytes, ops=ops)
-            print(f"[jitter] kernel {result['ms']:.4f} ms from channels-last "
-                  f"frames (the main path's), {result['ms_planar']:.4f} ms from "
-                  f"planar frames; plain {result['plain_ms']:.4f} ms, bound "
-                  f"{result['bound_ms']:.4f} ms ({result['bound_by']}: {nbytes} "
-                  f"B, {ops} f32 ops)", flush=True)
+            r.update(bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, ops=ops)
+            print(f"[jitter] F={frames}: kernel {r['ms']:.4f} ms from "
+                  f"channels-last frames (the main path's), "
+                  f"{r['ms_planar']:.4f} ms from planar frames; plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}: {nbytes} B, {ops} f32 ops)", flush=True)
+            del x, fb, fc, fs, fh, gray, orders
+        del args, cl, got, want, ulp, diff
+        torch.cuda.empty_cache()
 
     # the null path (factors 1, fh 0, gray -1, identity normalize): exact
     for size in (128, 9, 288):
@@ -344,11 +364,13 @@ def make_data(work):
     from coclr_tpu_torch.data.synthetic import make_synthetic_ucf
 
     t0 = time.time()
-    # 8 classes x 12 train groups x 4 clips = 384 train videos = 12 batches
+    # 8 classes x 12 train groups x 4 clips = 384 train videos = 12 batches;
+    # each has an RGB and a flow LMDB entry (the flow one a frame shorter)
     out = make_synthetic_ucf(os.path.join(work, "ucf"), n_classes=8,
                              n_groups=13, n_clips=4, n_frames=34,
-                             size=(136, 180), flow=False)
-    shutil.rmtree(os.path.join(work, "ucf", "frame"))
+                             size=(136, 180), flow=True)
+    for tree in ("frame", "flow"):
+        shutil.rmtree(os.path.join(work, "ucf", tree))
     meta_root = os.path.join(work, "meta_root")
     os.makedirs(meta_root)
     os.symlink(out["root"], os.path.join(meta_root, "ucf101"))
@@ -356,58 +378,79 @@ def make_data(work):
     os.makedirs(os.path.join(data_root, "UCF101"))
     os.symlink(out["db_path"],
                os.path.join(data_root, "UCF101", "ucf101_frame.lmdb"))
-    print(f"[slice] synthetic UCF LMDB built in {time.time() - t0:.1f} s",
-          flush=True)
-    return meta_root, data_root
-
-
-def phase_slice(dev, work):
-    import torch
-    from coclr_tpu_torch.config import PretrainConfig
-    from coclr_tpu_torch.data import native
-    from coclr_tpu_torch.kernels import build
-    from coclr_tpu_torch.models.moco import MoCo
-    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
-    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
-    from coclr_tpu_torch.train.pretrain import run_pretrain
-    from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                  load_reference_state_dict)
-
-    meta_root, data_root = make_data(work)
+    os.symlink(out["db_path_flow"],
+               os.path.join(data_root, "UCF101", "ucf101_tvl1_frame.lmdb"))
     os.environ["COCLR_META_ROOT"] = meta_root
-    cfg = PretrainConfig(net="s3d", model="infonce", seq_len=T, img_dim=S,
-                         batch_size=B, moco_k=K, moco_dim=DIM, epochs=1,
-                         workers=8, print_freq=1, compute_dtype="bfloat16",
-                         data_root=data_root, prefix="smoke")
+    print(f"[data] synthetic two-stream UCF LMDB built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return data_root
+
+
+def full_width(model, data_root, **kw):
+    from coclr_tpu_torch.config import PretrainConfig
+
+    return PretrainConfig(net="s3d", model=model, seq_len=T, img_dim=S,
+                          batch_size=B, moco_k=K, moco_dim=DIM, epochs=1,
+                          workers=8, print_freq=1, compute_dtype="bfloat16",
+                          data_root=data_root, prefix="smoke", **kw)
+
+
+def run_counted(cfg, work, steps, **kw):
+    """run_pretrain from `work` with the kernels' counts set to 0 just
+    before it and read just after; returns (model, info, counts per step,
+    counts, peak device memory)."""
+    import torch
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.train.pretrain import run_pretrain
+
     cwd = os.getcwd()
     os.chdir(work)
     try:
-        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.reset_peak_memory_stats()
         build.reset_counts()
-        _, _, info = run_pretrain(cfg, max_steps=12, device="cuda")
+        model, _, info = run_pretrain(cfg, max_steps=steps, device="cuda", **kw)
         counts = {name: k.launches for name, k in build.KERNELS.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
-        ckpt_path = os.path.join(work, info["exp_path"], "model",
-                                 "epoch0.pth.tar")
+        peak = torch.cuda.max_memory_allocated()
     finally:
         os.chdir(cwd)
-
-    steps = len(info["step_s"])
-    check(steps >= 10, f"only {steps} steps ran")
+    n = len(info["step_s"])
+    check(n == steps, f"{n} steps ran, not {steps}")
     check(math.isfinite(info["loss"]), f"loss is not finite: {info['loss']}")
-    per_step = {name: c / steps for name, c in counts.items()}
+    per_step = {name: c / n for name, c in counts.items()}
+    info["model_path"] = os.path.join(work, info["exp_path"], "model")
+    return model, info, per_step, counts, peak
+
+
+def loop_line(tag, info, peak):
+    step_ms = statistics.median(info["step_s"][2:]) * 1e3
+    print(f"[{tag}] {len(info['step_s'])} steps, mean loss {info['loss']:.4f} "
+          f"(finite); median step {step_ms:.1f} ms after 2 warm-up steps = "
+          f"{2 * B / step_ms * 1e3:.1f} clips/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return step_ms
+
+
+def phase_slice(dev, work, data_root):
+    import torch
+    from coclr_tpu_torch.data import native
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+    from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  load_reference_state_dict)
+
+    cfg = full_width("infonce", data_root)
+    _, info, per_step, counts, peak = run_counted(cfg, work, 12)
+    steps = len(info["step_s"])
     check(per_step == {"jitter": 1, "pool1d_bwd": 37},
           f"unexpected launches per step: {per_step}")
-    step_ms = statistics.median(info["step_s"][2:]) * 1e3
+    loop_line("slice", info, peak)
     decode = ("native C++ data plane (LMDB + msgpack), cv2 JPEG decode"
               if native.available() else "pure-Python data plane")
-    print(f"[slice] {steps} steps, mean loss {info['loss']:.4f} (finite); "
-          f"median step {step_ms:.1f} ms after 2 warm-up steps = "
-          f"{2 * B / step_ms * 1e3:.1f} clips/s; peak device memory "
-          f"{peak / 2**30:.2f} GiB; decode: {decode}", flush=True)
     print(f"[slice] kernel launches in the run: {counts} "
-          f"(per step {per_step})", flush=True)
+          f"(per step {per_step}); decode: {decode}", flush=True)
 
+    ckpt_path = os.path.join(info["model_path"], "epoch0.pth.tar")
     ckpt = load_checkpoint(ckpt_path)
     back = MoCo("s3d", DIM, K, torch.bfloat16).to(dev)
     load_reference_state_dict(back, ckpt["state_dict"])
@@ -416,6 +459,7 @@ def phase_slice(dev, work):
           "checkpoint read back wrong")
     print(f"[slice] checkpoint {os.path.relpath(ckpt_path, work)} written and "
           f"read back strictly ({len(ckpt['state_dict'])} tensors)", flush=True)
+    del back
 
     # the same step on a device-resident batch: the step without the loader
     model = MoCo("s3d", DIM, K, torch.bfloat16).to(dev).train()
@@ -426,20 +470,175 @@ def phase_slice(dev, work):
                                   device=dev, generator=gen),
              "aug_base": torch.randint(0, 2, (B, 2), dtype=torch.uint8,
                                        device=dev, generator=gen)}
+    step = lambda: pretrain_step(model, opt, pre(batch, gen), 1e-3, cfg)
+    dev_ms = time_steps(step, "slice")
+    step_kernels = profile_steps(step, 3)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "per_step": per_step, "ckpt": ckpt_path,
+            "in_step": step_kernels, "dev_ms": dev_ms}
+
+
+def time_steps(step, tag, n=7, warmup=2):
+    """Median of n - warmup synchronized steps, each checked finite."""
+    import torch
+
     times = []
-    for _ in range(7):
+    for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = pretrain_step(model, opt, pre(batch, gen)["seq"], 1e-3, cfg)
-        check(math.isfinite(float(metrics["loss"])), "device step loss")
+        metrics = step()
+        check(math.isfinite(float(metrics["loss"])), f"[{tag}] device step loss")
         times.append(time.perf_counter() - t0)
-    dev_ms = statistics.median(times[2:]) * 1e3
-    print(f"[slice] device-resident batch: median step {dev_ms:.1f} ms = "
-          f"{2 * B / dev_ms * 1e3:.1f} clips/s (preprocess + step, synchronized)",
+    ms = statistics.median(times[warmup:]) * 1e3
+    print(f"[{tag}] device-resident batch: median step {ms:.1f} ms = "
+          f"{2 * B / ms * 1e3:.1f} clips/s (preprocess + step, synchronized)",
           flush=True)
-    step_kernels = profile_steps(
-        lambda: pretrain_step(model, opt, pre(batch, gen)["seq"], 1e-3, cfg), 3)
-    return counts, steps, step_kernels
+    return ms
+
+
+class RecordingLoader:
+    """The port's Loader, keeping the labels of every batch it yields."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.labels = []
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.labels.append(batch["label"].copy())
+            yield batch
+
+
+def phase_ubernce(dev, work, data_root):
+    import numpy as np
+    from coclr_tpu_torch.data.loader import Loader
+    from coclr_tpu_torch.train.pretrain import build_dataset
+
+    cfg = full_width("ubernce", data_root)
+    loader = RecordingLoader(Loader(build_dataset(cfg), batch_size=B,
+                                    num_workers=cfg.workers, seed=cfg.seed))
+    model, info, per_step, counts, peak = run_counted(cfg, work, 6,
+                                                      loader=loader)
+    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
+          f"unexpected UberNCE launches per step: {per_step}")
+    labels = np.concatenate(loader.labels[:6])
+    got = model.queue_label.cpu().numpy()
+    check(np.array_equal(got[:6 * B], labels) and (got[6 * B:] == -1).all()
+          and int(model.queue_ptr) == 6 * B,
+          "UberNCE queue_label does not hold the batch labels")
+    loop_line("ubernce", info, peak)
+    print(f"[ubernce] launches {counts} (per step {per_step}); queue_label "
+          f"holds the {6 * B} batch labels ({len(set(labels.tolist()))} "
+          f"classes), -1 after", flush=True)
+    return {"counts": counts, "per_step": per_step}
+
+
+def phase_coclr(dev, work, data_root, first):
+    import torch
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  load_reference_state_dict,
+                                                  reference_state_dict,
+                                                  save_checkpoint)
+
+    second = os.path.join(work, "sampler.pth.tar")
+    save_checkpoint({"epoch": 0, "state_dict": reference_state_dict(
+        MoCo("s3d", DIM, K, torch.bfloat16, gen=torch.Generator().manual_seed(1)))},
+        filename=second)
+    cfg = full_width("coclr", data_root, dataset="ucf101-2stream-2clip",
+                     pretrain=(first, second), topk=5)
+    steps = 12
+    model, info, per_step, counts, peak = run_counted(cfg, work, steps)
+    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
+          f"unexpected CoCLR launches per gated step: {per_step}")
+    step_ms = loop_line("coclr", info, peak)
+
+    files = [load_checkpoint(p)["state_dict"] for p in (first, second)]
+    got = {k: v.cpu() for k, v in model.state_dict().items()}
+    names = {n for n, _ in model.named_parameters()}
+    q_same = all(torch.equal(got[n], files[0][n]) for n in names
+                 if n.startswith("encoder_q."))
+    s_same = all(torch.equal(v, files[1]["encoder_q." + k[len("sampler."):]])
+                 for k, v in got.items() if k.startswith("sampler."))
+    rows = steps * B
+    label = got["queue_label"]
+    check(q_same, "encoder_q moved while the queue-fill gate was closed")
+    check(s_same, "the sampler is not its checkpoint's encoder_q bit for bit")
+    check(int(got["queue_ptr"]) == rows % K and (label[:rows] == 1).all()
+          and (label[rows:] == -1).all(), "CoCLR queue_label / queue_ptr wrong")
+    ckpt = load_checkpoint(os.path.join(info["model_path"], "epoch0.pth.tar"))
+    back = MoCo("s3d", DIM, K, torch.bfloat16, variant="coclr")
+    load_reference_state_dict(back, ckpt["state_dict"])
+    check(torch.equal(back.queue_label, label), "CoCLR checkpoint read back wrong")
+    print(f"[coclr] launches {counts} (per step {per_step}); gate closed for "
+          f"all {steps} steps: encoder_q parameters equal the first "
+          f"checkpoint's, the sampler (parameters and BN buffers) the "
+          f"second's, bit for bit; queue_ptr {rows % K}, queue_label 1 in "
+          f"{rows} rows and -1 after; epoch checkpoint read back strictly "
+          f"({len(ckpt['state_dict'])} tensors)", flush=True)
+    del model, back
+    torch.cuda.empty_cache()
+    return {"counts": counts, "per_step": per_step, "step_ms": step_ms,
+            "peak": peak}
+
+
+def phase_coclr_device(dev):
+    import torch
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+
+    cfg = full_width("coclr", "", dataset="ucf101-2stream-2clip", topk=5)
+    model = MoCo("s3d", DIM, K, torch.bfloat16, variant="coclr").to(dev).train()
+    gen = torch.Generator(dev).manual_seed(2)
+    u8 = lambda: torch.randint(0, 256, (B, 2, T, S, S, 3), dtype=torch.uint8,
+                               device=dev, generator=gen)
+    batch = {"seq_rgb": u8(), "seq_flow": u8(),
+             "aug_base": torch.randint(0, 2, (B, 2), dtype=torch.uint8,
+                                       device=dev, generator=gen),
+             "vname": torch.randint(0, 100, (B,), dtype=torch.int32,
+                                    device=dev, generator=gen)}
+    # a full queue whose names share the batch's: siblings and top-k mining
+    model.queue_label.fill_(1)
+    model.queue_vname.copy_(torch.randint(0, 100, (K,), device=dev,
+                                          generator=gen))
+    siblings = int((batch["vname"][:, None] == model.queue_vname[None]).sum())
+    opt = make_optimizer(cfg, model.encoder_q.parameters())
+    pre = make_pretrain_preprocess(cfg)
+    before = [p.detach().clone() for p in model.encoder_q.parameters()]
+    step = lambda: pretrain_step(model, opt, pre(batch, gen), 1e-3, cfg,
+                                 drop_self=True, update=True)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    metrics = step()
+    counts = {name: k.launches for name, k in build.KERNELS.items()}
+    check(counts == {"jitter": 1, "pool1d_bwd": 37},
+          f"unexpected CoCLR launches with the gate open: {counts}")
+    check(math.isfinite(float(metrics["loss"]))
+          and float(metrics["queue_is_full"]) == 1.0, "CoCLR full-queue step")
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(before, model.encoder_q.parameters()))
+    check(moved > 0, "encoder_q did not change with the gate open")
+    print(f"[coclr-open] one step: launches {counts}, loss "
+          f"{float(metrics['loss']):.4f}, {moved} of {len(before)} encoder_q "
+          f"tensors changed; {siblings} sibling pairs between batch and queue",
+          flush=True)
+    dev_ms = time_steps(step, "coclr-open")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[coclr-open] peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    step_kernels = profile_steps(step, 3)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "dev_ms": dev_ms, "in_step": step_kernels,
+            "peak": peak}
 
 
 def profile_steps(step, n):
@@ -508,28 +707,46 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        counts, steps, step_kernels = phase_slice(dev, work)
+        data_root = make_data(work)
+        paths = {"infonce": phase_slice(dev, work, data_root),
+                 "ubernce": phase_ubernce(dev, work, data_root)}
+        paths["coclr_gated"] = phase_coclr(dev, work, data_root,
+                                           paths["infonce"]["ckpt"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    paths["coclr_open"] = phase_coclr_device(dev)
 
+    def launches(name):
+        return {"launches": sum(p["counts"][name] for p in paths.values()),
+                "launches_by_path": {k: p["counts"][name]
+                                     for k, p in paths.items()},
+                "launches_per_step": {k: p.get("per_step", p["counts"])[name]
+                                      for k, p in paths.items()},
+                "ms_in_step": {k: paths[k]["in_step"][name]
+                               for k in ("infonce", "coclr_open")}}
+
+    j2, j4 = jit[2048], jit[4096]
     kernels = [
         dict(name="jitter_normalize", route="cuda",
              source="coclr_tpu_torch/csrc/jitter.cu",
              replaces="coclr_tpu/ops/pallas_aug.py:146",
-             launches=counts["jitter"], launches_per_step=counts["jitter"] / steps,
-             max_abs_err=jit["max_abs_err"], ms=jit["ms"], kernel_ms=jit["ms"],
-             ms_planar=jit["ms_planar"], ms_in_step=step_kernels["jitter"],
-             plain_ms=jit["plain_ms"], bound_ms=jit["bound_ms"],
-             bound_by=jit["bound_by"], library_ms=None,
+             **launches("jitter"),
+             max_abs_err=max(j2["max_abs_err"], j4["max_abs_err"]),
+             ms=j2["ms"], kernel_ms=j2["ms"], ms_planar=j2["ms_planar"],
+             plain_ms=j2["plain_ms"], bound_ms=j2["bound_ms"],
+             bound_by=j2["bound_by"], library_ms=None,
              shape="F=2048 frames, 3x128x128 uint8 channels-last view -> "
-                   "bfloat16"),
+                   "bfloat16",
+             coclr_launch=dict(
+                 shape="F=4096 frames (RGB + flow), 3x128x128 uint8 "
+                       "channels-last view -> bfloat16",
+                 **{k: j4[k] for k in ("max_abs_err", "ms", "ms_planar",
+                                       "plain_ms", "bound_ms", "bound_by")})),
         dict(name="pool1d_bwd", route="cuda",
              source="coclr_tpu_torch/csrc/pool1d_bwd.cu",
              replaces="coclr_tpu/ops/pallas_pool.py:106",
-             launches=counts["pool1d_bwd"],
-             launches_per_step=counts["pool1d_bwd"] / steps,
+             **launches("pool1d_bwd"),
              max_abs_err=pool["max_abs_err"], ms=pool["ms"], kernel_ms=pool["ms"],
-             ms_in_step=step_kernels["pool1d_bwd"],
              plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
              bound_by=pool["bound_by"], library_ms=pool["library_ms"],
              library=pool["library"],

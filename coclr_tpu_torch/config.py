@@ -1,11 +1,11 @@
 """Typed configuration of the port. Field names mirror the reference CLI
-flags (main_nce.py) and coclr_tpu/config.py::PretrainConfig; only the
-fields the port acts on are kept, and the dtype is a string."""
+flags (main_nce.py, main_coclr.py) and coclr_tpu/config.py::PretrainConfig;
+only the fields the port acts on are kept, and the dtype is a string."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -34,7 +34,8 @@ class PretrainConfig:
     workers: int = 16
     seed: int = 0
     resume: str = ""
-    pretrain: str = ""
+    # one path (main_nce), or CoCLR's pair (to-train, sampler)
+    pretrain: Union[str, Tuple[str, str]] = ""
     test: str = ""
 
     moco_dim: int = 128
@@ -42,6 +43,10 @@ class PretrainConfig:
     moco_m: float = 0.999
     moco_t: float = 0.07
     cos: bool = False
+
+    # coclr (main_coclr.py)
+    topk: int = 5
+    reverse: bool = False
 
     compute_dtype: str = "bfloat16"
     data_root: str = ""

@@ -1,21 +1,28 @@
-"""InfoNCE pretraining CLI of the port:
-`python -m coclr_tpu_torch.main_nce [flags]`.
+"""InfoNCE / UberNCE pretraining CLI of the port:
+`python -m coclr_tpu_torch.main_nce [flags]` (`--model infonce` or
+`ubernce`).
 
 Takes the flags of the repository's main_nce.py (the reference's
 main_nce.py flags plus the JAX package's knobs). Flags the port does not act
 on (torch-distributed launch flags, mesh, sequence-parallel, aug-backend and
 checkpoint-format knobs) are accepted and ignored. `--device` picks the
-device: cuda (the default) or cpu.
+device: cuda (the default) or cpu. `build_parser(coclr=True)` gives the
+flags of main_coclr.py (coclr_tpu_torch/main_coclr.py).
 """
 
 import argparse
 
 
-def parse_args(argv=None):
+def build_parser(coclr: bool = False):
     parser = argparse.ArgumentParser()
     parser.add_argument('--net', default='s3d', type=str)
-    parser.add_argument('--model', default='infonce', type=str)
-    parser.add_argument('--dataset', default='ucf101-2clip', type=str)
+    parser.add_argument('--model', default='coclr' if coclr else 'infonce',
+                        type=str)
+    if coclr:
+        parser.add_argument('--topk', default=5, type=int)
+        parser.add_argument('--reverse', action='store_true')
+    parser.add_argument('--dataset', type=str,
+                        default='ucf101-2stream-2clip' if coclr else 'ucf101-2clip')
     parser.add_argument('--seq_len', default=32, type=int,
                         help='number of frames in each video block')
     parser.add_argument('--num_seq', default=2, type=int)
@@ -27,7 +34,12 @@ def parse_args(argv=None):
     parser.add_argument('--schedule', default=[120, 160], nargs='*', type=int)
     parser.add_argument('--wd', default=1e-5, type=float)
     parser.add_argument('--resume', default='', type=str)
-    parser.add_argument('--pretrain', default='', type=str)
+    if coclr:
+        parser.add_argument('--pretrain', default=['random', 'random'],
+                            nargs=2, type=str,
+                            help='paths: [to-train, oracle/sampler]')
+    else:
+        parser.add_argument('--pretrain', default='', type=str)
     parser.add_argument('--test', default='', type=str)
     parser.add_argument('--epochs', default=10, type=int)
     parser.add_argument('--start_epoch', default=0, type=int)
@@ -74,7 +86,11 @@ def parse_args(argv=None):
                         choices=['thread', 'process'])
     parser.add_argument('--device', default='cuda', type=str,
                         help='cuda (default) or cpu')
-    return parser.parse_args(argv)
+    return parser
+
+
+def parse_args(argv=None):
+    return build_parser().parse_args(argv)
 
 
 def cfg_from_args(args):
@@ -88,9 +104,13 @@ def cfg_from_args(args):
         start_epoch=args.start_epoch, print_freq=args.print_freq,
         save_freq=args.save_freq, img_dim=args.img_dim, prefix=args.prefix,
         name_prefix=args.name_prefix, workers=args.workers, seed=args.seed,
-        resume=args.resume, pretrain=args.pretrain, test=args.test,
+        resume=args.resume, test=args.test,
+        pretrain=(tuple(args.pretrain) if isinstance(args.pretrain, list)
+                  else args.pretrain),
         moco_dim=args.moco_dim, moco_k=args.moco_k, moco_m=args.moco_m,
-        moco_t=args.moco_t, cos=args.cos, compute_dtype=args.compute_dtype,
+        moco_t=args.moco_t, cos=args.cos, topk=getattr(args, 'topk', 5),
+        reverse=getattr(args, 'reverse', False),
+        compute_dtype=args.compute_dtype,
         data_root=args.data_root, worker_mode=args.worker_mode)
 
 

@@ -1,9 +1,12 @@
-"""MoCo InfoNCE core, ported from coclr_tpu/models/moco.py.
+"""MoCo core for InfoNCE, UberNCE and CoCLR, ported from
+coclr_tpu/models/moco.py.
 
 `MoCo` holds the state in the reference's key grammar (model/pretrain.py):
 encoder_q, encoder_k (the EMA copy, no gradients), `queue` and
-`queue_ptr`. The queue is stored [K, dim] so the enqueue writes rows; the
-reference's .pth.tar layout [dim, K] is produced at checkpoint time
+`queue_ptr`; UberNCE adds `queue_label`; CoCLR adds the frozen `sampler`,
+`queue_second`, `queue_vname` and `queue_label` (its is-filled flag). The
+queues are stored [K, dim] so the enqueue writes rows; the reference's
+.pth.tar layout [dim, K] is produced at checkpoint time
 (utils/checkpoint.py). The queue pointer stays on the device and the
 enqueue indexes with it, so a step never waits for the card.
 
@@ -21,6 +24,9 @@ from torch import nn
 
 from coclr_tpu_torch.models.encoder import ProjectionEncoder, init_params_
 
+NEG_INF = -1e30
+VARIANTS = ("infonce", "ubernce", "coclr")
+
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=dim, keepdim=True),
@@ -28,14 +34,24 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
 
 
 class MoCo(nn.Module):
-    """encoder_q / encoder_k + the negative queue. Parameters and the queue
-    are drawn from `gen` (on the CPU), then the module can be moved."""
+    """encoder_q / encoder_k + the negative queue, and per `variant` the
+    buffers of coclr_tpu's init_moco_state. Parameters and queues are drawn
+    from `gen` (on the CPU), then the module can be moved.
+
+    The CoCLR sampler has no gradients and stays in eval mode whatever
+    `train()` is asked for: the JAX package applies it with train=False, so
+    its BatchNorm normalises with, and never updates, its running
+    statistics."""
 
     def __init__(self, network: str = "s3d", dim: int = 128, K: int = 2048,
-                 dtype=torch.bfloat16, gen: torch.Generator = None):
+                 dtype=torch.bfloat16, gen: torch.Generator = None,
+                 variant: str = "infonce"):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown MoCo variant {variant!r}")
         if gen is None:
             gen = torch.Generator().manual_seed(0)
+        self.variant = variant
         self.encoder_q = ProjectionEncoder(network, dim, dtype)
         init_params_(self.encoder_q, gen)
         self.encoder_k = copy.deepcopy(self.encoder_q)
@@ -43,6 +59,24 @@ class MoCo(nn.Module):
         self.register_buffer(
             "queue", l2_normalize(torch.randn(K, dim, generator=gen)))
         self.register_buffer("queue_ptr", torch.zeros(1, dtype=torch.long))
+        if variant in ("ubernce", "coclr"):
+            self.register_buffer("queue_label",
+                                 torch.full((K,), -1, dtype=torch.long))
+        if variant == "coclr":
+            self.register_buffer("queue_vname",
+                                 torch.full((K,), -1, dtype=torch.long))
+            self.register_buffer(
+                "queue_second", l2_normalize(torch.randn(K, dim, generator=gen)))
+            self.sampler = ProjectionEncoder(network, dim, dtype)
+            init_params_(self.sampler, gen)
+            self.sampler.requires_grad_(False)
+            self.sampler.eval()
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.variant == "coclr":
+            self.sampler.eval()
+        return self
 
 
 @torch.no_grad()
@@ -64,12 +98,59 @@ def infonce_loss(logits):
     return torch.mean(torch.logsumexp(logits, dim=1) - logits[:, 0])
 
 
+def ubernce_loss(logits, mask):
+    """Mean over positives of -log-softmax, mean over the batch."""
+    logp = torch.log_softmax(logits, dim=1)
+    return torch.mean(-torch.sum(logp * mask, dim=1) / torch.sum(mask, dim=1))
+
+
+def multi_nce_loss(logits, mask):
+    """-log of the softmax mass on the positives (main_coclr.py)."""
+    logp = torch.log_softmax(logits, dim=1)
+    pos = torch.where(mask > 0, logp, NEG_INF)
+    return torch.mean(-torch.logsumexp(pos, dim=1))
+
+
+def ubernce_mask(k_label, queue_label):
+    """[1, k_label == queue_label] as float32 [b, 1 + K]."""
+    m = (k_label[:, None] == queue_label[None, :]).to(torch.float32)
+    return torch.cat([torch.ones_like(m[:, :1]), m], dim=1)
+
+
+def coclr_mask(kf, k_vsource, queue_second, queue_vname, queue_label,
+               topk: int):
+    """Sibling-source mask, joined by the sampler's top-k neighbours in
+    `queue_second` once the queue is full (no queue_label is -1). Float32
+    [b, 1 + K]. The fullness test stays on the device."""
+    mask = k_vsource[:, None] == queue_vname[None, :]
+    if topk != 0:
+        sim = (kf @ queue_second.t()).masked_fill(mask, NEG_INF)
+        idx = sim.topk(topk, dim=1).indices
+        mined = torch.zeros_like(mask).scatter_(1, idx, True)
+        full = torch.all(queue_label != -1)
+        mask = torch.where(full, mask | mined, mask)
+    ones = torch.ones_like(mask[:, :1])
+    return torch.cat([ones, mask], dim=1).to(torch.float32)
+
+
 @torch.no_grad()
-def dequeue_and_enqueue(queue, queue_ptr, keys) -> None:
-    """Write `keys` at the ring pointer and advance it (K % batch == 0)."""
+def dequeue_and_enqueue(queue, queue_ptr, keys, *, queue_label=None,
+                        labels=None, queue_second=None, keys_second=None,
+                        queue_vname=None, vnames=None) -> None:
+    """Write `keys` (and per variant labels, second-modality keys, video
+    names) at the ring pointer and advance it (K % batch == 0). CoCLR
+    writes queue_label = 1 beside the names: its is-filled flag, not the
+    class."""
     bs = keys.shape[0]
     idx = queue_ptr + torch.arange(bs, device=queue.device)
     queue.index_copy_(0, idx, keys.to(queue.dtype))
+    if labels is not None:
+        queue_label.index_copy_(0, idx, labels.to(queue_label.dtype))
+    if keys_second is not None:
+        queue_second.index_copy_(0, idx, keys_second.to(queue_second.dtype))
+    if vnames is not None:
+        queue_vname.index_copy_(0, idx, vnames.to(queue_vname.dtype))
+        queue_label.index_fill_(0, idx, 1)
     queue_ptr.copy_((queue_ptr + bs) % queue.shape[0])
 
 
@@ -78,3 +159,10 @@ def topk_accuracy(logits, target, ks=(1, 5)):
     pred = logits.topk(max(ks), dim=1).indices
     correct = pred == target[:, None]
     return tuple(correct[:, :k].any(dim=1).to(torch.float32).mean() for k in ks)
+
+
+def mask_accuracy(logits, mask, ks=(1, 5)):
+    """Share of rows with a positive among the top-k logits, per k."""
+    pred = logits.topk(max(ks), dim=1).indices
+    hit = torch.gather(mask, 1, pred) > 0
+    return tuple(hit[:, :k].any(dim=1).to(torch.float32).mean() for k in ks)

@@ -119,16 +119,38 @@ def normalize(x, mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.bfloat16):
     return ((x.to(torch.float32) - mean) / std).to(dtype)
 
 
+def augment_batch(batch, params: Dict[str, torch.Tensor], dtype=torch.bfloat16):
+    """Apply `draw_aug_params` draws to a pretrain batch and normalize.
+
+    Single stream: batch['seq']. Two streams: batch['seq_rgb'] and
+    batch['seq_flow'] are concatenated along the frame axis into
+    [B, 2, 2T, S, S, 3], the reference's doubled seq_len (main_coclr.py), so
+    the jitter factors, op order, blur and flip of a clip unit are shared by
+    its RGB and flow frames and the gray channel is drawn per frame over 2T
+    frames; one jitter launch covers all of them, and the result is split
+    again. The flow frames are colour-jittered too, as in the reference.
+    Returns the batch without 'aug_base'."""
+    out = {k: v for k, v in batch.items() if k != "aug_base"}
+    if "seq" in batch:
+        out["seq"] = apply_aug(batch["seq"], params, dtype=dtype)
+        return out
+    t = batch["seq_rgb"].shape[2]
+    both = apply_aug(torch.cat([batch["seq_rgb"], batch["seq_flow"]], dim=2),
+                     params, dtype=dtype)
+    out["seq_rgb"], out["seq_flow"] = both[:, :, :t], both[:, :, t:]
+    return out
+
+
 def make_pretrain_preprocess(cfg):
-    """preprocess_fn(batch, gen) for the single-stream pretrain step: draws
-    with `gen`, then augments and normalizes batch['seq'] in cfg.dtype."""
+    """preprocess_fn(batch, gen) for the pretrain step: draws with `gen`,
+    then augments and normalizes the clips in cfg.dtype (augment_batch)."""
     dtype = cfg.dtype
 
     def fn(batch, gen: torch.Generator):
-        seq = batch["seq"]
-        params = draw_aug_params(gen, batch["aug_base"], seq.shape[2])
-        out = {k: v for k, v in batch.items() if k != "aug_base"}
-        out["seq"] = apply_aug(seq, params, dtype=dtype, normalize_out=True)
-        return out
+        # the draws cover a clip unit: T frames, or 2T for RGB + flow
+        frames = (batch["seq"].shape[2] if "seq" in batch else
+                  batch["seq_rgb"].shape[2] + batch["seq_flow"].shape[2])
+        params = draw_aug_params(gen, batch["aug_base"], frames)
+        return augment_batch(batch, params, dtype)
 
     return fn

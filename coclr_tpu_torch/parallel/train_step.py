@@ -1,9 +1,21 @@
-"""The single-GPU InfoNCE pretrain step, ported from the infonce branch of
+"""The single-GPU pretrain step for InfoNCE, UberNCE and CoCLR, ported from
 coclr_tpu/parallel/train_step.py::_pretrain_step.
 
-EMA of the key encoder, key encode (train-mode BN, no gradients), query
-encode, logits over the queue, InfoNCE, Adam, then the ring enqueue, in the
-reference's order (main_nce.py, model/pretrain.py).
+EMA of the key encoder, key encode (train-mode BN, no gradients), for CoCLR
+the frozen sampler's encode of the other modality (eval mode), the masks
+from the queues as they were before this step's enqueue, query encode,
+logits over the queue, the variant's loss, Adam, then the ring enqueue, in
+the reference's order (main_nce.py, main_coclr.py, model/pretrain.py).
+
+Two decisions the JAX step takes on the device arrive here as host values,
+so the step never waits for the card:
+- `drop_self`: CoCLR's one draw per step of `random.random() < 0.9`, which
+  zeroes the self-positive where other positives exist;
+- `update`: CoCLR's queue-fill gate. While any queue_label is -1 the JAX
+  step computes the update and keeps the old parameters and optimizer
+  state; here the backward still runs and `optimizer.step()` is skipped,
+  which gives the same state. The loop keeps the gate's host mirror
+  (train/pretrain.py QueueFill).
 """
 
 from __future__ import annotations
@@ -26,30 +38,81 @@ def to_ncdhw(clip):
     return clip.permute(0, 4, 1, 2, 3).contiguous()
 
 
-def pretrain_step(model: moco.MoCo, optimizer, seq, lr: float, cfg):
-    """One InfoNCE step on augmented clips seq [B, 2, T, H, W, C].
-    Updates model and optimizer in place; returns device-tensor metrics
-    {'loss', 'top1', 'top5'}."""
-    x1, x2 = to_ncdhw(seq[:, 0]), to_ncdhw(seq[:, 1])
+def _encode(encoder, x):
+    return moco.l2_normalize(encoder(x).to(torch.float32))
+
+
+def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
+                  drop_self: bool = True, update: bool = True):
+    """One step of cfg.model on an augmented batch: {'seq': [B, 2, T, H, W,
+    C]} (+ 'label' for UberNCE), {'seq_rgb', 'seq_flow', 'vname'} for
+    CoCLR, or for InfoNCE the clips tensor alone. Updates model and
+    optimizer in place; returns device-tensor metrics {'loss', 'top1',
+    'top5'} (+ 'top1_self', 'top5_self' for UberNCE and CoCLR, and
+    'queue_is_full' for CoCLR)."""
+    variant = model.variant
+    if not isinstance(batch, dict):
+        batch = {"seq": batch}
+    if variant == "coclr":
+        primary, other = ((batch["seq_flow"], batch["seq_rgb"]) if cfg.reverse
+                          else (batch["seq_rgb"], batch["seq_flow"]))
+        x1, x2 = to_ncdhw(primary[:, 0]), to_ncdhw(primary[:, 1])
+        f2 = to_ncdhw(other[:, 1])
+    else:
+        x1, x2 = to_ncdhw(batch["seq"][:, 0]), to_ncdhw(batch["seq"][:, 1])
 
     params_q = list(model.encoder_q.parameters())
     moco.momentum_update(params_q, list(model.encoder_k.parameters()),
                          cfg.moco_m)
     with torch.no_grad():
-        k = moco.l2_normalize(model.encoder_k(x2).to(torch.float32))
+        k = _encode(model.encoder_k, x2)
+        if variant == "coclr":
+            kf = _encode(model.sampler, f2)
+            mask = moco.coclr_mask(kf, batch["vname"], model.queue_second,
+                                   model.queue_vname, model.queue_label,
+                                   cfg.topk)
+        elif variant == "ubernce":
+            mask = moco.ubernce_mask(batch["label"], model.queue_label)
 
-    q = moco.l2_normalize(model.encoder_q(x1).to(torch.float32))
+    q = _encode(model.encoder_q, x1)
     logits = moco.moco_logits(q, k, model.queue, cfg.moco_t)
-    loss = moco.infonce_loss(logits)
+    if variant == "infonce":
+        loss = moco.infonce_loss(logits)
+    elif variant == "ubernce":
+        loss = moco.ubernce_loss(logits, mask)
+    else:
+        used = mask
+        if drop_self:
+            used = mask.clone()
+            used[:, 0] = torch.where(mask.sum(dim=1) != 1, 0.0, mask[:, 0])
+        loss = moco.multi_nce_loss(logits, used)
 
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    if update:
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
 
     logits = logits.detach()
     zeros = torch.zeros(logits.shape[0], dtype=torch.long, device=logits.device)
-    top1, top5 = moco.topk_accuracy(logits, zeros)
-    moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k)
-    return {"loss": loss.detach(), "top1": top1, "top5": top5}
+    metrics = {"loss": loss.detach()}
+    if variant == "infonce":
+        metrics["top1"], metrics["top5"] = moco.topk_accuracy(logits, zeros)
+        moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k)
+        return metrics
+    metrics["top1"], metrics["top5"] = moco.mask_accuracy(logits, mask)
+    metrics["top1_self"], metrics["top5_self"] = moco.topk_accuracy(logits, zeros)
+    if variant == "ubernce":
+        moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k,
+                                 queue_label=model.queue_label,
+                                 labels=batch["label"])
+    else:
+        metrics["queue_is_full"] = torch.all(
+            model.queue_label != -1).to(torch.float32)
+        moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k,
+                                 queue_label=model.queue_label,
+                                 queue_second=model.queue_second,
+                                 keys_second=kf, queue_vname=model.queue_vname,
+                                 vnames=batch["vname"])
+    return metrics

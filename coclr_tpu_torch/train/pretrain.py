@@ -1,7 +1,9 @@
-"""Pretraining loop, ported from coclr_tpu/train/pretrain.py (InfoNCE on
-one device): experiment-dir naming, meters and logging, the loader, the
-preprocess -> step loop, checkpoint rotation, the malloc pin and the
-preemption guard. The reference's main_nce.py loop is the model.
+"""Pretraining loop for InfoNCE, UberNCE and CoCLR on one device, ported
+from coclr_tpu/train/pretrain.py: experiment-dir naming, the init paths
+(resume, CoCLR's two-checkpoint surgery, weights-only --pretrain, scratch),
+meters and logging, the loader, the preprocess -> step loop, CoCLR's
+queue-fill gate, checkpoint rotation, the malloc pin and the preemption
+guard. The reference's main_nce.py and main_coclr.py loops are the model.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from coclr_tpu_torch.data.loader import Loader
 from coclr_tpu_torch.models.moco import MoCo
 from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
 from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+from coclr_tpu_torch.train import init_surgery
 from coclr_tpu_torch.train.lr import get_lr
 from coclr_tpu_torch.utils import (malloc_trim, pin_malloc_mmap_threshold,
                                    resolve_device)
@@ -30,11 +33,21 @@ from coclr_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
 
 def set_path(cfg: PretrainConfig):
-    """Experiment-dir naming contract (main_nce.py set_path)."""
+    """Experiment-dir naming contract (main_nce.py and main_coclr.py
+    set_path)."""
     if cfg.resume:
         exp_path = os.path.dirname(os.path.dirname(cfg.resume))
     elif cfg.test:
         exp_path = os.path.dirname(os.path.dirname(cfg.test))
+    elif cfg.model == "coclr":
+        exp_path = (
+            "log-{p}/{np}{model}-top{topk}{rev}_k{k}_{ds}-{dim}_{net}_"
+            "bs{bs}_lr{lr}_seq{nseq}_len{len}_ds{dsr}").format(
+                p=cfg.prefix, np=cfg.name_prefix, model=cfg.model,
+                topk=cfg.topk, rev="-R" if cfg.reverse else "", k=cfg.moco_k,
+                ds=cfg.dataset, dim=cfg.img_dim, net=cfg.net,
+                bs=cfg.batch_size, lr=cfg.lr, nseq=cfg.num_seq,
+                len=cfg.seq_len, dsr=cfg.ds)
     else:
         pt = ("_pt=%s" % str(cfg.pretrain).replace("/", "-")
               if cfg.pretrain else "")
@@ -53,7 +66,8 @@ def set_path(cfg: PretrainConfig):
 
 
 def build_dataset(cfg: PretrainConfig):
-    """cfg.dataset -> single-stream 2-clip dataset (main_nce.py)."""
+    """cfg.dataset -> 2-clip dataset: single stream (main_nce.py) or RGB +
+    flow with source ids (main_coclr.py)."""
     kw = dict(data_root=cfg.data_root, mode="train", num_frames=cfg.seq_len,
               ds=cfg.ds, return_label=True, img_dim=cfg.img_dim, seed=cfg.seed)
     if cfg.dataset == "ucf101-2clip":
@@ -64,13 +78,24 @@ def build_dataset(cfg: PretrainConfig):
         return D.K400_LMDB_2CLIP(**kw)
     if cfg.dataset == "k400-f-2clip":
         return D.K400_Flow_LMDB_2CLIP(**kw)
+    if cfg.dataset == "ucf101-2stream-2clip":
+        return D.UCF101_2STREAM_LMDB_2CLIP(return_source=True, **kw)
+    if cfg.dataset == "k400-2stream-2clip":
+        return D.K400_2STREAM_LMDB_2CLIP(return_source=True, **kw)
     raise ValueError(f"unknown or not yet ported dataset {cfg.dataset!r}")
 
 
+_UPLOAD = ("seq", "seq_rgb", "seq_flow", "aug_base", "label", "vname")
+
+
 def upload(batch, device):
-    """Host numpy batch -> device tensors (pinned, asynchronous on CUDA)."""
+    """Host numpy batch -> device tensors (pinned, asynchronous on CUDA):
+    the clips, the augmentation flags, and the labels and source ids that
+    UberNCE and CoCLR read."""
     out = {}
-    for key in ("seq", "aug_base"):
+    for key in _UPLOAD:
+        if key not in batch:
+            continue
         t = torch.from_numpy(np.ascontiguousarray(batch[key]))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
@@ -115,6 +140,25 @@ class _PreemptionGuard:
         return False
 
 
+class QueueFill:
+    """Host mirror of CoCLR's queue-fill gate: the queue rows written so far
+    (queue_label != -1) and the ring pointer, read from the device once when
+    the loop starts and advanced by each enqueue, so the gate costs no
+    device read per step."""
+
+    def __init__(self, model):
+        self.filled = (model.queue_label != -1).cpu().numpy()
+        self.ptr = int(model.queue_ptr)
+
+    @property
+    def full(self) -> bool:
+        return bool(self.filled.all())
+
+    def advance(self, rows: int) -> None:
+        self.filled[self.ptr:self.ptr + rows] = True
+        self.ptr = (self.ptr + rows) % len(self.filled)
+
+
 def _payload(model, optimizer, epoch, best_acc, iteration):
     return {"epoch": epoch, "state_dict": reference_state_dict(model),
             "best_acc": best_acc, "optimizer": optimizer.state_dict(),
@@ -133,9 +177,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     # bfloat16 convolutions are unaffected by these switches
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if cfg.model != "infonce":
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (InfoNCE only)")
+    is_coclr = cfg.model == "coclr"
     global_batch = cfg.batch_size
     if cfg.moco_k % global_batch:
         raise ValueError(f"moco_k={cfg.moco_k} must be divisible by the "
@@ -144,7 +186,8 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     print(f"=> creating {cfg.model} model with '{cfg.net}' backbone on "
           f"{device}")
     model = MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype,
-                 gen=torch.Generator().manual_seed(cfg.seed)).to(device)
+                 gen=torch.Generator().manual_seed(cfg.seed),
+                 variant=cfg.model).to(device)
     model.train()
     optimizer = make_optimizer(cfg, model.encoder_q.parameters())
     preprocess = make_pretrain_preprocess(cfg)
@@ -159,13 +202,14 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
         iteration = ckpt.get("iteration", 1)
         best_acc = ckpt.get("best_acc", 0.0)
         print(f"=> resumed '{cfg.resume}' (epoch {ckpt['epoch']})")
-    elif cfg.pretrain:
-        ckpt = load_checkpoint(cfg.pretrain)
-        res = load_reference_state_dict(model, ckpt["state_dict"], strict=False)
-        print(f"=> loaded pretrained '{cfg.pretrain}' (missing: "
-              f"{res.missing_keys}, unused: {res.unexpected_keys})")
+    elif is_coclr and isinstance(cfg.pretrain, (tuple, list)) \
+            and list(cfg.pretrain) != ["random", "random"]:
+        init_surgery.coclr_surgery(model, tuple(cfg.pretrain))
+    elif cfg.pretrain and not is_coclr:
+        init_surgery.init_pretrain_weights(model, cfg.pretrain)
     else:
         print("=> train from scratch")
+    fill = QueueFill(model) if is_coclr else None
 
     if loader is None:
         if dataset is None:
@@ -177,6 +221,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     plotter = PlotterThread(os.path.join(img_path, "train"))
     logger = Logger(img_path)
     gen = torch.Generator(device)
+    self_gen = torch.Generator()  # CoCLR's self-drop draw, on the host
 
     train_acc, train_loss = 0.0, float("nan")
     step_s = []
@@ -186,8 +231,10 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
         for epoch in range(start_epoch, cfg.epochs):
             loader.set_epoch(epoch)
             lr = get_lr(cfg, epoch)
-            meters = {name: AverageMeter(name)
-                      for name in ["Time", "Data", "Loss", "acc@1", "acc@5"]}
+            names = ["Time", "Data", "Loss", "acc@1", "acc@5"]
+            if cfg.model != "infonce":
+                names += ["Self-acc@1", "Self-acc@5"]
+            meters = {name: AverageMeter(name) for name in names}
             progress = ProgressMeter(len(loader), list(meters.values()),
                                      prefix=f"Epoch:[{epoch}]")
             tic = end = time.time()
@@ -198,14 +245,25 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                     meters["Loss"].update(float(pending["loss"]), global_batch)
                     meters["acc@1"].update(float(pending["top1"]), global_batch)
                     meters["acc@5"].update(float(pending["top5"]), global_batch)
+                    if "top1_self" in pending:
+                        meters["Self-acc@1"].update(float(pending["top1_self"]),
+                                                    global_batch)
+                        meters["Self-acc@5"].update(float(pending["top5_self"]),
+                                                    global_batch)
 
             steps_this_epoch = 0
             for idx, batch in enumerate(loader):
                 meters["Data"].update(time.time() - end)
                 batch = upload(batch, device)
-                gen.manual_seed(cfg.seed * 1_000_003 + iteration)
-                seq = preprocess(batch, gen)["seq"]
-                metrics = pretrain_step(model, optimizer, seq, lr, cfg)
+                seed = cfg.seed * 1_000_003 + iteration
+                gen.manual_seed(seed)
+                self_gen.manual_seed(seed ^ 0x5EED)
+                drop_self = bool(torch.rand((), generator=self_gen) < 0.9)
+                metrics = pretrain_step(
+                    model, optimizer, preprocess(batch, gen), lr, cfg,
+                    drop_self=drop_self, update=fill is None or fill.full)
+                if fill is not None:
+                    fill.advance(global_batch)
                 drain(pending)  # waits for step i-1 while step i runs
                 pending = metrics
                 dt = time.time() - end

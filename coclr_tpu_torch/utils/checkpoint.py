@@ -4,8 +4,10 @@ rotation semantics of coclr_tpu/utils/checkpoint.py (the reference's
 utils/utils.py save_checkpoint): saving epoch N removes epoch N - gap unless
 keep_all, and at most 5 `model_best_*` files are kept.
 
-The state_dict is in the reference key layout: the port's [K, dim] queue is
-written [dim, K]; loading transposes it back.
+The state_dict is in the reference key layout: the port's [K, dim] queues
+(`queue`, and CoCLR's `queue_second`) are written [dim, K]; loading
+transposes them back. `queue_label` and `queue_vname` are int64, as the
+reference keeps them.
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ from typing import Any, Dict
 import torch
 
 _EXT = ".pth.tar"
+_QUEUES = ("queue", "queue_second")
 
 
 def reference_state_dict(model) -> Dict[str, torch.Tensor]:
-    """The model's state_dict on the CPU, queue as [dim, K]."""
+    """The model's state_dict on the CPU, queues as [dim, K]."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    if "queue" in sd:
-        sd["queue"] = sd["queue"].t().contiguous()
+    for key in _QUEUES:
+        if key in sd:
+            sd[key] = sd[key].t().contiguous()
     return sd
 
 
@@ -32,8 +36,9 @@ def load_reference_state_dict(model, sd: Dict[str, torch.Tensor],
                               strict: bool = True):
     """Inverse of reference_state_dict."""
     sd = dict(sd)
-    if "queue" in sd:
-        sd["queue"] = sd["queue"].t().contiguous()
+    for key in _QUEUES:
+        if key in sd:
+            sd[key] = sd[key].t().contiguous()
     return model.load_state_dict(sd, strict=strict)
 
 

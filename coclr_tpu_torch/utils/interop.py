@@ -14,8 +14,8 @@ coclr_tpu/utils/torch_interop.py (torch_from_flax_*):
   flax module path branchN_j      -> branchN.j (branch0 -> branch0.0)
 
 S3D members are emitted twice, under their own name and under the
-reference's duplicate `blockN.i` registration. The queue stays [K, dim], the
-port's layout.
+reference's duplicate `blockN.i` registration. The queues stay [K, dim], the
+port's layout; CoCLR's sampler is emitted as `sampler.*`.
 """
 
 from __future__ import annotations
@@ -121,20 +121,32 @@ def encoder_state_dict_from_jax(params, stats) -> Dict[str, torch.Tensor]:
 
 
 def state_dict_from_jax(params_q, stats_q, params_k=None, stats_k=None,
-                        queue=None, queue_ptr: Optional[int] = None
+                        queue=None, queue_ptr: Optional[int] = None, *,
+                        queue_label=None, params_s=None, stats_s=None,
+                        queue_second=None, queue_vname=None
                         ) -> Dict[str, torch.Tensor]:
     """A MoCo state of the JAX package -> the port's MoCo state dict.
 
     params_k / stats_k default to the query encoder's (the JAX package
-    starts encoder_k as a copy); queue is [K, dim]."""
+    starts encoder_k as a copy); queue and queue_second are [K, dim];
+    queue_label (UberNCE, CoCLR) and, for CoCLR, the sampler's params_s /
+    stats_s, queue_second and queue_vname complete a state that the port's
+    MoCo of that variant loads with strict=True."""
     sd = {"encoder_q." + k: v
           for k, v in encoder_state_dict_from_jax(params_q, stats_q).items()}
     if params_k is None:
         params_k, stats_k = params_q, stats_q
     sd.update({"encoder_k." + k: v
                for k, v in encoder_state_dict_from_jax(params_k, stats_k).items()})
-    if queue is not None:
-        sd["queue"] = torch.from_numpy(np.array(queue, dtype=np.float32))
+    if params_s is not None:
+        sd.update({"sampler." + k: v for k, v in
+                   encoder_state_dict_from_jax(params_s, stats_s).items()})
+    for key, val in (("queue", queue), ("queue_second", queue_second)):
+        if val is not None:
+            sd[key] = torch.from_numpy(np.array(val, dtype=np.float32))
+    for key, val in (("queue_label", queue_label), ("queue_vname", queue_vname)):
+        if val is not None:
+            sd[key] = torch.from_numpy(np.array(val, dtype=np.int64))
     if queue_ptr is not None:
         sd["queue_ptr"] = torch.tensor([int(queue_ptr)], dtype=torch.long)
     return sd

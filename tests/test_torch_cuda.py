@@ -8,11 +8,12 @@ without the suite's conftest:
 """
 
 import itertools
+import math
 
 import pytest
 import torch
 
-from coclr_tpu_torch.kernels import pool
+from coclr_tpu_torch.kernels import jitter, pool
 from coclr_tpu_torch.kernels.jitter import (fused_jitter_normalize,
                                             jitter_normalize_plain)
 
@@ -164,3 +165,148 @@ def test_wrapper_counts_launches_and_rejects_bad_input(dev):
     assert pool.KERNEL.launches == before + 1
     with pytest.raises(TypeError):
         pool.pool1d_bwd(x.half(), out.half(), out.half(), 3, 2, 1)
+
+
+@pytest.mark.cuda
+def test_two_stream_preprocess_on_card_matches_cpu(dev):
+    """The two-stream preprocess (one jitter launch over RGB and flow
+    frames, then blur and flip) on the card against the same draws through
+    the plain version on the CPU, in float32: median abs difference < 1e-5
+    and mean < 1e-3 (HSV branch ties flip on ULPs and the blur smears
+    them)."""
+    from coclr_tpu_torch.ops.augment import augment_batch, draw_aug_params
+
+    gen = torch.Generator().manual_seed(4)
+    B, T, S = 4, 8, 32
+    batch = {"seq_rgb": torch.randint(0, 256, (B, 2, T, S, S, 3), generator=gen,
+                                      dtype=torch.uint8),
+             "seq_flow": torch.randint(0, 256, (B, 2, T, S, S, 3), generator=gen,
+                                       dtype=torch.uint8),
+             "aug_base": torch.ones(B, 2, dtype=torch.uint8)}
+    params = draw_aug_params(gen, batch["aug_base"], 2 * T)
+    want = augment_batch(batch, params, dtype=torch.float32)
+    launches = jitter.KERNEL.launches
+    got = augment_batch({k: v.to(dev) for k, v in batch.items()},
+                        {k: v.to(dev) for k, v in params.items()},
+                        dtype=torch.float32)
+    assert jitter.KERNEL.launches == launches + 1
+    for name in ("seq_rgb", "seq_flow"):
+        d = (got[name].cpu() - want[name]).abs()
+        assert float(d.median()) < 1e-5 and float(d.mean()) < 1e-3, name
+
+
+def _coclr_s3d(dtype, dim, K):
+    """A CoCLR MoCo of S3D whose backbone convs (encoder_q, encoder_k and the
+    sampler) are redrawn He-scaled from a seed, so that the eval-mode
+    sampler's features differ from clip to clip; the queue is full."""
+    from coclr_tpu_torch.models import moco
+
+    model = moco.MoCo("s3d", dim, K, dtype, gen=torch.Generator().manual_seed(0),
+                      variant="coclr")
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for enc in (model.encoder_q, model.sampler):
+            for mod in enc[0].modules():
+                if isinstance(mod, torch.nn.Conv3d):
+                    mod.weight.normal_(0.0, (2.0 / mod.weight[0].numel()) ** 0.5,
+                                       generator=gen)
+        model.encoder_k.load_state_dict(model.encoder_q.state_dict())
+        model.queue_label.fill_(1)
+        model.queue_vname.copy_(torch.arange(K) % 6)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coclr_step_with_full_queue_on_card_matches_cpu(dev, dtype):
+    """One CoCLR step of S3D (full queue: sibling masking, top-k mining, the
+    self-drop, Adam) on the card in `dtype` through the pool kernel (37
+    launches), against the same step in float32 on the CPU through the
+    plain versions, and against the card with the plain pool backward
+    (cuDNN deterministic): the kernel's step equals that one bit for bit.
+    The CPU runs float32 in both cases: a bfloat16 step on the CPU of one
+    card machine gave NaN in some encoder_q elements.
+
+    Against the CPU, the mined mask is equal (the top-k's margins, checked
+    on the CPU, are at least 2e-2) and Adam's first step moves each encoder_q
+    element by at most lr, so none differs by more than 2 lr. float32 (TF32
+    off): loss rtol 1e-4, queue rows atol 1e-4, queue_second atol 1e-5, and
+    encoder_q's whole gradient rtol 0.1 in norm: a randomly initialised S3D
+    with batch-statistics BN at B = 4 turns rounding into max-pool and ReLU
+    ties that move it (an input scaled by 1 + 1e-7 moves it 1.8 % on the
+    CPU). bfloat16: the same amplification moves the pooled features by
+    about 40 % (bfloat16 against float32 on the CPU) and the loss by about a
+    third, so only queue_second, the eval-mode sampler's features, is held
+    to the CPU, at atol 2e-2, and the loss is checked finite."""
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.models import moco
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+
+    lr, K, B, T, S, D = 1e-3, 64, 4, 8, 64, 16
+    cfg = PretrainConfig(net="s3d", model="coclr", moco_k=K, moco_dim=D,
+                         topk=3, lr=lr)
+    gen = torch.Generator().manual_seed(5)
+    clip = lambda: (torch.randn(B, 2, T, S, S, 3, generator=gen)
+                    * (0.2 + 2.8 * torch.rand(B, 1, 1, 1, 1, 1, generator=gen))
+                    + 2 * torch.randn(B, 1, 1, 1, 1, 3, generator=gen))
+    batch = {"seq_rgb": clip(), "seq_flow": clip(),
+             "vname": torch.tensor([0, 1, 2, 1], dtype=torch.int32)}
+    second = moco.l2_normalize(torch.randn(K, D, generator=gen))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    kernel_bwd = pool.pool1d_bwd
+    runs = {}
+    try:
+        for name, d in (("cpu", "cpu"), ("card", dev), ("card-plain", dev)):
+            model = _coclr_s3d(torch.float32 if name == "cpu" else dtype,
+                               D, K).to(d).train()
+            model.queue_second.copy_(second)
+            opt = make_optimizer(cfg, model.encoder_q.parameters())
+            b = {k: v.to(d) for k, v in batch.items()}
+            with torch.no_grad():
+                kf = moco.l2_normalize(model.sampler(
+                    b["seq_flow"][:, 1].permute(0, 4, 1, 2, 3)).float())
+                sim = (kf @ model.queue_second.t()).masked_fill(
+                    b["vname"][:, None].long() == model.queue_vname[None],
+                    moco.NEG_INF)
+                mask = moco.coclr_mask(kf, b["vname"], model.queue_second,
+                                       model.queue_vname, model.queue_label,
+                                       cfg.topk)
+            if name == "card-plain":
+                pool.pool1d_bwd = pool.pool1d_bwd_plain
+            launches = pool.KERNEL.launches
+            m = pretrain_step(model, opt, b, lr, cfg, drop_self=True, update=True)
+            pool.pool1d_bwd = kernel_bwd
+            assert pool.KERNEL.launches - launches == (37 if name == "card" else 0)
+            grad = torch.cat([p.grad.float().flatten().cpu()
+                              for p in model.encoder_q.parameters()])
+            runs[name] = (float(m["loss"]), mask.cpu(), sim.sort(1).values.cpu(),
+                          {k: v.detach().cpu().float()
+                           for k, v in model.state_dict().items()}, grad)
+    finally:
+        pool.pool1d_bwd = kernel_bwd
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+    (l0, m0, sim0, s0, g0), (l1, m1, _, s1, g1) = runs["cpu"], runs["card"]
+    assert runs["card"][0] == runs["card-plain"][0]
+    assert torch.equal(g1, runs["card-plain"][4])
+    for key, val in s1.items():
+        assert torch.equal(val, runs["card-plain"][3][key]), key
+    k = cfg.topk
+    assert float((sim0[:, -k] - sim0[:, -k - 1]).min()) >= 2e-2
+    assert torch.equal(m0, m1) and int(m0[:, 1:].sum()) > B * k
+    f32 = dtype == torch.float32
+    assert math.isfinite(l1) and (not f32 or abs(l0 - l1) <= 1e-4 * abs(l0))
+    assert float((s1["queue_second"] - s0["queue_second"]).abs().max()) \
+        <= (1e-5 if f32 else 2e-2)
+    if f32:
+        assert float((s1["queue"] - s0["queue"]).abs().max()) <= 1e-4
+        assert float((g1 - g0).norm()) <= 0.1 * float(g0.norm())
+    for key, val in s0.items():
+        if key.startswith("encoder_q.") and "running" not in key \
+                and "num_batches" not in key:
+            assert float((s1[key] - val).abs().max()) <= 2 * lr + 1e-6, key
