@@ -16,6 +16,8 @@ non-zero exit on failure:
    channel-planar frames and from the channels-last view the main path
    passes; the one-pixel path (9 x 9) and frames too large for shared
    memory (288 x 288); and the null path exactly; timed on both layouts;
+   then at the classifier train preprocess's launch (F = 1024, gray off, a
+   channels-last view of the clips after the uint8 flip), timed;
 3. kernel 2 (pool1d_bwd) against its plain version at every launch shape of
    one full-width S3D step and at edge shapes that take every tiling of the
    kernel, in bfloat16 and float32 (post-ReLU zero ties, integer-valued g:
@@ -26,8 +28,8 @@ non-zero exit on failure:
    synthetic two-stream UCF LMDB, with the launch counts of both kernels,
    and the epoch checkpoint read back; then the step on a device-resident
    batch, and a torch.profiler window over 3 such steps: each kernel's
-   device time in the step, the device's busy share and the 10 device ops
-   that take most;
+   device time in the step, the device's busy share, the 10 device ops
+   and the 8 host ops that take most;
 5. UberNCE: run_pretrain(model='ubernce') at the same width for 6 steps;
    launches per step, and the batch labels in the queue rows written;
 6. CoCLR loop: run_pretrain(model='coclr', ucf101-2stream-2clip) at full
@@ -37,12 +39,25 @@ non-zero exit on failure:
    (parameters and BatchNorm buffers) stay bit-identical to their files,
    queue_label is 1 in the rows written and -1 after; launches per step;
    the epoch checkpoint read back strictly;
-7. CoCLR step with a full queue on a device-resident batch (sibling masks,
+7. the eval suite from phase 4's checkpoint, at the reference eval
+   recipe's width (S3D, seq_len 32, img_dim 128, batch 32, bfloat16, a
+   101-way UCF101 head), through main_classifier's flags:
+   - finetune (--train_what ft): 12 loop steps and validation, launches per
+     step, the checkpoint read back strictly; the step on a device-resident
+     batch, timed and profiled;
+   - linear probe (--train_what last): 6 loop steps and validation; the
+     backbone stays the checkpoint's bit for bit; the device-resident step;
+   - --test --retrieval of the RGB and the flow stream over the train and
+     test splits (--max_windows 1), recall@k, extraction clips/s;
+   - --test --ten_crop with the probe's checkpoint, and a flow center-crop;
+   - feature_linear_probe on the RGB cache, merge_2stream_prob in mode c
+     (RGB ten-crop + flow center-crop) and mode s (the two caches);
+8. CoCLR step with a full queue on a device-resident batch (sibling masks,
    top-k mining, the self-drop, Adam), timed, and the profiler window;
-8. one JSON line {"kernels": [...]} with each kernel's launches (per path
+9. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
-9. last line: {"ok": true, "device": {...}}.
+10. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -395,24 +410,36 @@ def full_width(model, data_root, **kw):
                           data_root=data_root, prefix="smoke", **kw)
 
 
-def run_counted(cfg, work, steps, **kw):
-    """run_pretrain from `work` with the kernels' counts set to 0 just
-    before it and read just after; returns (model, info, counts per step,
-    counts, peak device memory)."""
+def counted(fn, work):
+    """fn() run from `work` with the kernels' counts set to 0 just before it
+    and read just after; returns (its result, counts, seconds, peak device
+    memory)."""
     import torch
     from coclr_tpu_torch.kernels import build
-    from coclr_tpu_torch.train.pretrain import run_pretrain
 
     cwd = os.getcwd()
     os.chdir(work)
     try:
         torch.cuda.reset_peak_memory_stats()
         build.reset_counts()
-        model, _, info = run_pretrain(cfg, max_steps=steps, device="cuda", **kw)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
         counts = {name: k.launches for name, k in build.KERNELS.items()}
         peak = torch.cuda.max_memory_allocated()
     finally:
         os.chdir(cwd)
+    return out, counts, sec, peak
+
+
+def run_counted(cfg, work, steps, **kw):
+    """run_pretrain through `counted`; returns (model, info, counts per
+    step, counts, peak device memory)."""
+    from coclr_tpu_torch.train.pretrain import run_pretrain
+
+    (model, _, info), counts, _, peak = counted(
+        lambda: run_pretrain(cfg, max_steps=steps, device="cuda", **kw), work)
     n = len(info["step_s"])
     check(n == steps, f"{n} steps ran, not {steps}")
     check(math.isfinite(info["loss"]), f"loss is not finite: {info['loss']}")
@@ -421,11 +448,11 @@ def run_counted(cfg, work, steps, **kw):
     return model, info, per_step, counts, peak
 
 
-def loop_line(tag, info, peak):
+def loop_line(tag, info, peak, clips=2 * B):
     step_ms = statistics.median(info["step_s"][2:]) * 1e3
     print(f"[{tag}] {len(info['step_s'])} steps, mean loss {info['loss']:.4f} "
           f"(finite); median step {step_ms:.1f} ms after 2 warm-up steps = "
-          f"{2 * B / step_ms * 1e3:.1f} clips/s; peak device memory "
+          f"{clips / step_ms * 1e3:.1f} clips/s; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     return step_ms
 
@@ -479,8 +506,9 @@ def phase_slice(dev, work, data_root):
             "in_step": step_kernels, "dev_ms": dev_ms}
 
 
-def time_steps(step, tag, n=7, warmup=2):
-    """Median of n - warmup synchronized steps, each checked finite."""
+def time_steps(step, tag, n=7, warmup=2, clips=2 * B):
+    """Median of n - warmup synchronized steps, each checked finite; `clips`
+    is the clips one step encodes with gradients."""
     import torch
 
     times = []
@@ -492,7 +520,7 @@ def time_steps(step, tag, n=7, warmup=2):
         times.append(time.perf_counter() - t0)
     ms = statistics.median(times[warmup:]) * 1e3
     print(f"[{tag}] device-resident batch: median step {ms:.1f} ms = "
-          f"{2 * B / ms * 1e3:.1f} clips/s (preprocess + step, synchronized)",
+          f"{clips / ms * 1e3:.1f} clips/s (preprocess + step, synchronized)",
           flush=True)
     return ms
 
@@ -641,10 +669,264 @@ def phase_coclr_device(dev):
             "peak": peak}
 
 
-def profile_steps(step, n):
+NUM_CLASS = 101  # UCF101's head, at the eval recipe's full width
+
+
+def eval_argv(data_root, *extra):
+    """main_classifier flags at the reference eval recipe's width."""
+    return ["--net", "s3d", "--dataset", "ucf101", "--seq_len", str(T),
+            "--img_dim", str(S), "--batch_size", str(B), "--compute_dtype",
+            "bfloat16", "--workers", "8", "--data_root", data_root,
+            "--prefix", "smoke", "--print_freq", "1", *extra]
+
+
+def run_classifier(work, data_root, train_what, steps, pretrain):
+    """main_classifier's config and run_classifier_train for `steps` steps
+    (and validation), counted; returns (model, info, counts per step,
+    counts, peak)."""
+    from coclr_tpu_torch import main_classifier
+    from coclr_tpu_torch.evalsuite.driver import run_classifier_train
+
+    cfg = main_classifier.cfg_from_args(main_classifier.parse_args(eval_argv(
+        data_root, "--train_what", train_what, "--epochs", "1", "--pretrain",
+        pretrain)))
+    (model, _, info), counts, _, peak = counted(
+        lambda: run_classifier_train(cfg, max_steps=steps, device="cuda"), work)
+    n = len(info["step_s"])
+    check(n == steps, f"{n} classifier steps ran, not {steps}")
+    check(math.isfinite(info["loss"]) and math.isfinite(info["val"]["loss"]),
+          f"classifier loss is not finite: {info['loss']}, {info['val']}")
+    info["ckpt"] = os.path.join(work, info["exp_path"], "model", "epoch0.pth.tar")
+    check(os.path.isfile(info["ckpt"]), "no classifier checkpoint written")
+    return model, cfg, info, {k: c / n for k, c in counts.items()}, counts, peak
+
+
+def classifier_device_step(dev, cfg, pretrain, tag, expect):
+    """The classifier step on a device-resident batch: launches of one step,
+    its time and a profiler window."""
+    import torch
+    from coclr_tpu_torch.evalsuite import driver, steps
+    from coclr_tpu_torch.kernels import build
+
+    model = driver.load_pretrained_backbone(driver.build_model(cfg), pretrain)
+    model.to(dev)
+    opt = steps.make_classifier_optimizer(cfg, model)
+    gen = torch.Generator(dev).manual_seed(3)
+    seq = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev,
+                        generator=gen)
+    label = torch.randint(0, NUM_CLASS, (B,), device=dev, generator=gen)
+    step = lambda: steps.train_step(
+        model, opt, steps.preprocess_train(seq, gen, cfg.dtype), label, 1e-3,
+        drop_gen=gen)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    step()
+    counts = {name: k.launches for name, k in build.KERNELS.items()}
+    check(counts == expect, f"[{tag}] unexpected launches in one step: {counts}")
+    dev_ms = time_steps(step, tag, clips=B)
+    peak = torch.cuda.max_memory_allocated()
+    in_step = profile_steps(step, 3, expect=[k for k, v in expect.items() if v])
+    print(f"[{tag}] one device-resident step: launches {counts}; peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    del model, opt, seq
+    torch.cuda.empty_cache()
+    return {"dev_ms": dev_ms, "in_step": in_step, "peak": peak}
+
+
+def phase_finetune(dev, work, data_root, pretrain):
+    """`--train_what ft` from the InfoNCE checkpoint: 12 loop steps and
+    validation, then the device-resident step."""
+    from coclr_tpu_torch.evalsuite import driver
+    from coclr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model, cfg, info, per_step, counts, peak = run_classifier(
+        work, data_root, "ft", 12, pretrain)
+    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
+          f"unexpected finetune launches per step: {per_step}")
+    step_ms = loop_line("finetune", info, peak, clips=B)
+    back = driver.build_model(cfg)
+    back.load_state_dict(load_checkpoint(info["ckpt"])["state_dict"])
+    print(f"[finetune] launches {counts} (per step {per_step}); validation "
+          f"loss {info['val']['loss']:.4f}, top-1 {info['val']['top1']:.4f}; "
+          f"checkpoint read back strictly", flush=True)
+    del model, back
+    dev = classifier_device_step(dev, cfg, pretrain, "finetune",
+                                 {"jitter": 1, "pool1d_bwd": 37})
+    return dict(dev, counts=counts, per_step=per_step, step_ms=step_ms,
+                loop_peak=peak)
+
+
+def phase_probe(dev, work, data_root, pretrain):
+    """`--train_what last`: 6 loop steps and validation; no backward runs
+    through the backbone, which stays its checkpoint's bit for bit."""
+    import torch
+    from coclr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model, cfg, info, per_step, counts, peak = run_classifier(
+        work, data_root, "last", 6, pretrain)
+    check(per_step == {"jitter": 1, "pool1d_bwd": 0},
+          f"unexpected linear-probe launches per step: {per_step}")
+    step_ms = loop_line("probe", info, peak, clips=B)
+    file = {k[len("encoder_q.0."):]: v for k, v in
+            load_checkpoint(pretrain)["state_dict"].items()
+            if k.startswith("encoder_q.0.")}
+    got = model.backbone.state_dict()
+    check(got.keys() == file.keys()
+          and all(torch.equal(v.cpu(), file[k]) for k, v in got.items()),
+          "the linear probe's backbone is not its checkpoint's bit for bit")
+    check(not torch.equal(model.final_bn.running_var.cpu(),
+                          torch.ones(model.final_bn.num_features)),
+          "final_bn did not train")
+    print(f"[probe] launches {counts} (per step {per_step}); the backbone "
+          f"({len(got)} tensors, BN buffers included) equals the checkpoint's "
+          f"encoder_q.0 bit for bit; validation loss {info['val']['loss']:.4f}",
+          flush=True)
+    del model
+    dev = classifier_device_step(dev, cfg, pretrain, "probe",
+                                 {"jitter": 1, "pool1d_bwd": 0})
+    return dict(dev, counts=counts, per_step=per_step, step_ms=step_ms,
+                loop_peak=peak, ckpt=info["ckpt"])
+
+
+def phase_retrieval(work, data_root, pretrain, dataset, dirname):
+    """`--test <pretrain> --retrieval` over the train and test splits, one
+    window a video (--max_windows 1), counted and timed."""
+    from coclr_tpu_torch import main_classifier
+    from coclr_tpu_torch.evalsuite.retrieval import CLIP_BATCH, load_feature_cache
+
+    argv = eval_argv(data_root, "--dataset", dataset, "--test", pretrain,
+                     "--retrieval", "--max_windows", "1", "--dirname", dirname)
+    recall, counts, sec, peak = counted(lambda: main_classifier.main(argv),
+                                        work)
+    cache = os.path.join(os.path.dirname(pretrain), dirname)
+    n = {split: len(load_feature_cache(cache, dataset, split)[1])
+         for split in ("train", "test")}
+    batches = sum(-(-v // CLIP_BATCH) for v in n.values())
+    check(counts == {"jitter": batches, "pool1d_bwd": 0},
+          f"unexpected retrieval launches {counts} for {n} videos")
+    check(set(recall) == {1, 5, 10, 20, 50}
+          and all(0.0 <= r <= 1.0 for r in recall.values()), "recall")
+    clips = sum(n.values())
+    print(f"[retrieval {dataset}] {clips} clips ({n}) in {sec:.2f} s = "
+          f"{clips / sec:.1f} clips/s (decode, jitter, S3D forward, cache "
+          f"write, recall); launches {counts}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; recall@k "
+          f"{ {k: round(v, 4) for k, v in recall.items()} }", flush=True)
+    return {"counts": counts, "clips_per_s": clips / sec, "cache": cache,
+            "recall": recall}
+
+
+def phase_ncrop(work, data_root, ckpt, dataset, mode):
+    """`--test <classifier> --ten_crop` (or --center_crop) over the test
+    split, one window a video, counted."""
+    from coclr_tpu_torch import main_classifier
+
+    argv = eval_argv(data_root, "--dataset", dataset, "--train_what", "last",
+                     "--test", ckpt, f"--{mode}_crop", "--max_windows", "1")
+    res, counts, sec, _ = counted(lambda: main_classifier.main(argv), work)
+    configs = {"ten": 10, "center": 1}[mode]
+    check(counts["pool1d_bwd"] == 0 and counts["jitter"] == configs,
+          f"unexpected N-crop launches {counts}")
+    check(set(res) == ({"center", "five", "ten"} if mode == "ten" else {mode}),
+          f"N-crop results {res}")
+    path = f"{ckpt}-prob-{mode}.json"
+    check(os.path.isfile(path), f"no {path}")
+    print(f"[ncrop {dataset}] {mode}-crop test in {sec:.2f} s: launches "
+          f"{counts}; (top-1, top-5) {res}", flush=True)
+    return {"counts": counts, "json": path}
+
+
+def phase_fusion(work, pretrain, rgb_json, flow_json, rgb_cache, flow_cache):
+    """The feature-cache probe, then both merge modes."""
+    from coclr_tpu_torch import feature_linear_probe, merge_2stream_prob
+
+    (best, epoch), counts, sec, _ = counted(lambda: feature_linear_probe.main(
+        ["--test", pretrain, "--dirname", os.path.basename(rgb_cache),
+         "--epochs", "10", "--eval_freq", "1", "--lr", "0.1", "--final_bn"]),
+        work)
+    lp = os.path.join(rgb_cache, os.path.basename(pretrain)
+                      + "-lp-ucf101-prob.json")
+    check(os.path.isfile(lp) and 0.0 <= best <= 1.0, "feature probe")
+    class_ind = os.path.join(os.environ["COCLR_META_ROOT"], "ucf101",
+                             "ClassInd.txt")
+    accs = merge_2stream_prob.main(["--mode", "c", "--prob1", rgb_json,
+                                    "--prob2", flow_json, "--class_ind",
+                                    class_ind])
+    sim = merge_2stream_prob.main(["--mode", "s", "--prob1", rgb_cache,
+                                   "--prob2", flow_cache])
+    check(all(0.0 <= a <= 1.0 for a in accs) and set(sim) == {1, 5, 10, 20, 50},
+          "merge")
+    print(f"[fusion] feature probe best top-1 {best:.4f} at epoch {epoch} "
+          f"({sec:.2f} s, on the card); merge c (RGB ten-crop + flow "
+          f"center-crop) {accs}; merge s recall@k "
+          f"{ {k: round(v, 4) for k, v in sim.items()} }", flush=True)
+
+
+def phase_jitter_eval(dev):
+    """Kernel 1 at the classifier train preprocess's launch: F = 32 x 32
+    frames of 128 x 128, gray off, a channels-last view of the clips after
+    the uint8 flip, with the eval draws (p 0.3) and with every clip's
+    jitter on."""
+    import torch
+    from coclr_tpu_torch.evalsuite import steps
+    from coclr_tpu_torch.kernels.jitter import (fused_jitter_normalize,
+                                                jitter_normalize_plain)
+
+    gen = torch.Generator(dev).manual_seed(5)
+    seq = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev,
+                        generator=gen)
+    result = {}
+    for p in (1.0, steps.TRAIN_JITTER["p"]):
+        d = steps.draw_train_preprocess(gen, B)
+        d.update(steps.draw_eval_jitter_params(
+            gen, B, p=p, strength=steps.TRAIN_JITTER["strength"]))
+        flipped = torch.where(d["do_flip"][:, None, None, None, None],
+                              seq.flip(3), seq)
+        rep = lambda v: v.repeat_interleave(T)
+        frames = flipped.reshape(B * T, S, S, 3).permute(0, 3, 1, 2)
+        gray = torch.full((B * T,), -1, dtype=torch.int32, device=dev)
+        args = (frames, rep(d["fb"]), rep(d["fc"]), rep(d["fs"]), rep(d["fh"]),
+                gray, rep(d["orders"]))
+        got = fused_jitter_normalize(*args).float()
+        want = jitter_normalize_plain(*args).float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        diff = (got - want).abs()
+        over = float((diff > ulp).float().mean())
+        on = int((d["fb"] != 1.0).sum())
+        check(over <= 1e-3, "jitter kernel disagrees with its plain version at "
+                            "the eval shape")
+        check(torch.equal(steps.apply_train_preprocess(seq, d).reshape(
+            B * T, S, S, 3).permute(0, 3, 1, 2).float(), got),
+              "apply_train_preprocess is not the kernel on the flipped clips")
+        print(f"[jitter-eval] F={B * T} S={S}, gray off, p={p} ({on} of {B} "
+              f"clips jittered): {over:.2e} of outputs more than 1 bf16 ULP off "
+              f"(cap 1e-3), max abs err {float(diff.max()):.4g}", flush=True)
+        result = {"max_abs_err": max(result.get("max_abs_err", 0.0),
+                                     float(diff.max()))}
+    # timed with the main path's draws (the last ones, p 0.3)
+    nbytes = frames.numel() * (1 + 2) + B * T * 6 * 4
+    ops = jitter_ops(B * T, S, args[2], args[4], gray, args[6])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    result.update(ms=cuda_ms(lambda: fused_jitter_normalize(*args)),
+                  plain_ms=cuda_ms(lambda: jitter_normalize_plain(*args),
+                                   reps=3, warmup=1),
+                  bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations",
+                  bytes=nbytes, ops=ops)
+    print(f"[jitter-eval] kernel {result['ms']:.4f} ms, plain "
+          f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
+          f"({result['bound_by']}: {nbytes} B, {ops} f32 ops)", flush=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_steps(step, n, expect=("jitter", "pool1d_bwd")):
     """torch.profiler over n synchronized steps: prints the device busy
     share, the device time per step of the 10 device ops that take most and
-    of the port's two kernels; returns the kernels' ms per step."""
+    of the port's two kernels, and the 8 host ops with the most self time;
+    fails unless each kernel in `expect` ran; returns the kernels' ms per
+    step and the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -671,13 +953,19 @@ def profile_steps(step, n):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     for name, us in top:
         print(f"[profile]   {us / 1e3 / n:8.3f} ms/step  {name[:110]}", flush=True)
+    # where the host's time goes (self time, inflated by the profiler itself)
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
+    for a in host:
+        print(f"[profile]   host {a.self_cpu_time_total / 1e3 / n:8.3f} ms/step "
+              f"{a.count / n:7.1f} calls/step  {a.key[:90]}", flush=True)
     kernels = {key: sum(us for name, us in per_name.items() if tag in name) / 1e3 / n
                for key, tag in (("jitter", "jitter_kernel"),
                                 ("pool1d_bwd", "pool1d_bwd_kernel"))}
     print(f"[profile] the port's kernels in the step (ms per step): {kernels}",
           flush=True)
-    check(all(v > 0 for v in kernels.values()),
+    check(all(kernels[k] > 0 for k in expect),
           "the profiler saw no launch of one of the port's kernels")
+    kernels["busy"] = busy / wall_us
     return kernels
 
 
@@ -702,6 +990,7 @@ def main():
 
     phase_build()
     jit = phase_jitter(dev)
+    jit_eval = phase_jitter_eval(dev)
     pool = phase_pool(dev)
     work = os.path.join(here, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -710,20 +999,43 @@ def main():
         data_root = make_data(work)
         paths = {"infonce": phase_slice(dev, work, data_root),
                  "ubernce": phase_ubernce(dev, work, data_root)}
-        paths["coclr_gated"] = phase_coclr(dev, work, data_root,
-                                           paths["infonce"]["ckpt"])
+        pretrained = paths["infonce"]["ckpt"]
+        paths["coclr_gated"] = phase_coclr(dev, work, data_root, pretrained)
+        paths["finetune"] = phase_finetune(dev, work, data_root, pretrained)
+        paths["probe"] = phase_probe(dev, work, data_root, pretrained)
+        paths["retrieval"] = phase_retrieval(work, data_root, pretrained,
+                                             "ucf101", "feature")
+        paths["retrieval_flow"] = phase_retrieval(
+            work, data_root, pretrained, "ucf101-f", "feature_flow")
+        paths["ncrop"] = phase_ncrop(work, data_root, paths["probe"]["ckpt"],
+                                     "ucf101", "ten")
+        # the flow stream's classifier: the probe's weights, in a directory
+        # of its own so that its prob json does not overwrite the RGB one
+        flow_ckpt = os.path.join(work, "flow_probe", "model", "epoch0.pth.tar")
+        os.makedirs(os.path.dirname(flow_ckpt))
+        shutil.copy(paths["probe"]["ckpt"], flow_ckpt)
+        paths["ncrop_flow"] = phase_ncrop(work, data_root, flow_ckpt,
+                                          "ucf101-f", "center")
+        phase_fusion(work, pretrained, paths["ncrop"]["json"],
+                     paths["ncrop_flow"]["json"], paths["retrieval"]["cache"],
+                     paths["retrieval_flow"]["cache"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths["coclr_open"] = phase_coclr_device(dev)
+
+    trained = ("infonce", "ubernce", "coclr_gated", "coclr_open", "finetune",
+               "probe")
 
     def launches(name):
         return {"launches": sum(p["counts"][name] for p in paths.values()),
                 "launches_by_path": {k: p["counts"][name]
                                      for k, p in paths.items()},
-                "launches_per_step": {k: p.get("per_step", p["counts"])[name]
-                                      for k, p in paths.items()},
+                "launches_per_step": {k: paths[k].get("per_step",
+                                                      paths[k]["counts"])[name]
+                                      for k in trained},
                 "ms_in_step": {k: paths[k]["in_step"][name]
-                               for k in ("infonce", "coclr_open")}}
+                               for k in ("infonce", "coclr_open", "finetune",
+                                         "probe")}}
 
     j2, j4 = jit[2048], jit[4096]
     kernels = [
@@ -731,7 +1043,8 @@ def main():
              source="coclr_tpu_torch/csrc/jitter.cu",
              replaces="coclr_tpu/ops/pallas_aug.py:146",
              **launches("jitter"),
-             max_abs_err=max(j2["max_abs_err"], j4["max_abs_err"]),
+             max_abs_err=max(j2["max_abs_err"], j4["max_abs_err"],
+                             jit_eval["max_abs_err"]),
              ms=j2["ms"], kernel_ms=j2["ms"], ms_planar=j2["ms_planar"],
              plain_ms=j2["plain_ms"], bound_ms=j2["bound_ms"],
              bound_by=j2["bound_by"], library_ms=None,
@@ -741,7 +1054,13 @@ def main():
                  shape="F=4096 frames (RGB + flow), 3x128x128 uint8 "
                        "channels-last view -> bfloat16",
                  **{k: j4[k] for k in ("max_abs_err", "ms", "ms_planar",
-                                       "plain_ms", "bound_ms", "bound_by")})),
+                                       "plain_ms", "bound_ms", "bound_by")}),
+             eval_launch=dict(
+                 shape="F=1024 frames (32 clips x 32), 3x128x128 uint8 "
+                       "channels-last view after the uint8 flip, gray off -> "
+                       "bfloat16",
+                 **{k: jit_eval[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by")})),
         dict(name="pool1d_bwd", route="cuda",
              source="coclr_tpu_torch/csrc/pool1d_bwd.cu",
              replaces="coclr_tpu/ops/pallas_pool.py:106",

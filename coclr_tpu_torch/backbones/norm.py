@@ -20,8 +20,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-_VIEW = (1, -1, 1, 1, 1)
-
 
 class _BatchStats(torch.autograd.Function):
     """Per-channel (mean, biased var) in float32 over all axes but 1.
@@ -50,6 +48,27 @@ class _BatchStats(torch.autograd.Function):
         return dx.to(x.dtype)
 
 
+def _folded_forward(bn, x):
+    """The folded BatchNorm forward of `bn` (an nn.BatchNorm*d with a
+    `compute_dtype`) on x [N, C, ...]."""
+    if bn.training:
+        mean, var = _BatchStats.apply(x)
+        with torch.no_grad():
+            n = x.numel() // x.shape[1]
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(
+                mean.detach(), alpha=bn.momentum)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(
+                var.detach() * (n / max(n - 1, 1)), alpha=bn.momentum)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    s = bn.weight * torch.rsqrt(var + bn.eps)
+    o = bn.bias - mean * s
+    d = bn.compute_dtype
+    view = (1, -1) + (1,) * (x.dim() - 2)
+    return x.to(d) * s.to(d).view(view) + o.to(d).view(view)
+
+
 class FoldedBatchNorm(nn.BatchNorm3d):
     """nn.BatchNorm3d state, folded-affine forward in `dtype`."""
 
@@ -58,21 +77,19 @@ class FoldedBatchNorm(nn.BatchNorm3d):
         self.compute_dtype = dtype
 
     def forward(self, x):
-        if self.training:
-            mean, var = _BatchStats.apply(x)
-            with torch.no_grad():
-                n = x.numel() // x.shape[1]
-                self.running_mean.mul_(1.0 - self.momentum).add_(
-                    mean.detach(), alpha=self.momentum)
-                self.running_var.mul_(1.0 - self.momentum).add_(
-                    var.detach() * (n / max(n - 1, 1)), alpha=self.momentum)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        s = self.weight * torch.rsqrt(var + self.eps)
-        o = self.bias - mean * s
-        d = self.compute_dtype
-        return x.to(d) * s.to(d).view(_VIEW) + o.to(d).view(_VIEW)
+        return _folded_forward(self, x)
+
+
+class FoldedBatchNorm1d(nn.BatchNorm1d):
+    """The same on [N, C] features: nn.BatchNorm1d state (the classifier's
+    final_bn), float32 by default."""
+
+    def __init__(self, num_features: int, dtype=torch.float32):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return _folded_forward(self, x)
 
 
 def bn_relu(bn: FoldedBatchNorm, x):

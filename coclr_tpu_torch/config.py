@@ -1,6 +1,7 @@
 """Typed configuration of the port. Field names mirror the reference CLI
-flags (main_nce.py, main_coclr.py) and coclr_tpu/config.py::PretrainConfig;
-only the fields the port acts on are kept, and the dtype is a string."""
+flags (main_nce.py, main_coclr.py, eval/main_classifier.py) and
+coclr_tpu/config.py's PretrainConfig and EvalConfig; only the fields the
+port acts on are kept, and the dtype is a string."""
 
 from __future__ import annotations
 
@@ -48,6 +49,49 @@ class PretrainConfig:
     topk: int = 5
     reverse: bool = False
 
+    compute_dtype: str = "bfloat16"
+    data_root: str = ""
+    worker_mode: str = "thread"
+
+    @property
+    def dtype(self):
+        return DTYPES[self.compute_dtype]
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    """Finetune, linear probe, retrieval and N-crop test
+    (eval/main_classifier.py flags)."""
+
+    net: str = "s3d"
+    model: str = "lincls"
+    dataset: str = "ucf101"
+    which_split: int = 1
+    seq_len: int = 32
+    ds: int = 1
+    batch_size: int = 32
+    lr: float = 1e-3
+    schedule: Tuple[int, ...] = (60, 80)
+    wd: float = 1e-3
+    dropout: float = 0.9
+    epochs: int = 10
+    start_epoch: int = 0
+    img_dim: int = 128
+    print_freq: int = 5
+    optim: str = "sgd"
+    train_what: str = "last"            # last | ft | all
+    seed: int = 0
+    workers: int = 16
+    resume: str = ""
+    pretrain: str = ""
+    test: str = ""
+    retrieval: bool = False
+    ten_crop: bool = False
+    center_crop: bool = False
+    five_crop: bool = False
+    prefix: str = "linclr"
+    max_windows: int = 0                # >0: eval datasets decode only the
+                                        # CENTER max_windows windows per video
     compute_dtype: str = "bfloat16"
     data_root: str = ""
     worker_mode: str = "thread"

@@ -45,15 +45,23 @@ def init_params_(encoder: ProjectionEncoder, gen: torch.Generator) -> None:
     backbone convs Normal(0, 0.01), BN weight 1 / bias 0, and torch's default
     U(+-1/sqrt(fan_in)) for the head convs and the gating Linear layers."""
     with torch.no_grad():
-        for mod in encoder[0].modules():
+        init_backbone_(encoder[0], gen)
+        _torch_default_init(encoder[2], gen)
+        _torch_default_init(encoder[4], gen)
+
+
+def init_backbone_(backbone: nn.Module, gen: torch.Generator) -> None:
+    """The reference's backbone initializers, drawn from `gen`: convs
+    Normal(0, 0.01), BN weight 1 / bias 0, gating Linear layers torch's
+    default."""
+    with torch.no_grad():
+        for mod in backbone.modules():
             if isinstance(mod, nn.Conv3d):
                 nn.init.normal_(mod.weight, 0.0, 0.01, generator=gen)
             elif isinstance(mod, nn.Linear):
                 _torch_default_init(mod, gen)
             elif isinstance(mod, nn.BatchNorm3d):
                 mod.reset_parameters()
-        _torch_default_init(encoder[2], gen)
-        _torch_default_init(encoder[4], gen)
 
 
 def _torch_default_init(mod, gen):

@@ -17,6 +17,11 @@ Jitter, gray and normalize run as one CUDA kernel (kernels/jitter.py);
 blur and flip are two batched matmuls with the banded `_blur_matrix`, the
 flip a row reversal of the W-axis matrix. Normalize commutes with them
 because the blur rows sum to 1 and the flip is a permutation.
+
+The eval suite's jitter (classifier training, retrieval extraction and the
+N-crop test) is a per-clip RandomApply(p) ColorJitter with no gray, split
+the same way: `draw_eval_jitter_params` draws, `apply_eval_jitter` runs the
+kernel with gray off on every frame.
 """
 
 from __future__ import annotations
@@ -109,6 +114,49 @@ def apply_aug(seq_u8, params: Dict[str, torch.Tensor], dtype=torch.bfloat16,
     x = torch.einsum("mhk,mlckw->mlchw", wh, x)
     x = torch.einsum("mwk,mlchk->mlchw", ww, x)
     return x.reshape(b, n, L, c, s1, s2).permute(0, 1, 2, 4, 5, 3)
+
+
+def draw_eval_jitter_params(gen: torch.Generator, m: int, p: float = 0.3,
+                            strength=(0.2, 0.2, 0.2, 0.1)
+                            ) -> Dict[str, torch.Tensor]:
+    """Per-clip RandomApply(p) ColorJitter draws for m clips, on gen's
+    device (coclr_tpu/ops/augment.py eval_color_jitter_params, and the
+    per-clip draw of coclr_tpu/evalsuite/ncrop.py, which has the same
+    distribution): factors fb, fc, fs (1 = identity) and hue shift fh
+    (0 = identity) where the clip's jitter applies, and a packed op order."""
+    dev = gen.device
+    uniform = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        m, generator=gen, device=dev)
+    sb, sc, ss, sh = strength
+    do = uniform(0.0, 1.0) < p
+    one = torch.ones(m, device=dev)
+    perms = torch.argsort(torch.rand((m, 4), generator=gen, device=dev), dim=1)
+    return {
+        "fb": torch.where(do, uniform(max(0.0, 1.0 - sb), 1.0 + sb), one),
+        "fc": torch.where(do, uniform(max(0.0, 1.0 - sc), 1.0 + sc), one),
+        "fs": torch.where(do, uniform(max(0.0, 1.0 - ss), 1.0 + ss), one),
+        "fh": torch.where(do, uniform(-sh, sh), torch.zeros(m, device=dev)),
+        "orders": pack_orders(perms),
+    }
+
+
+def apply_eval_jitter(x_u8, params: Dict[str, torch.Tensor],
+                      dtype=torch.bfloat16, mean=IMAGENET_MEAN,
+                      std=IMAGENET_STD):
+    """x_u8: [B, T, S1, S2, 3] uint8 clips and `draw_eval_jitter_params`
+    draws for B clips -> [B, T, S1, S2, 3] `dtype`, jittered and normalized
+    by one launch of the jitter kernel with gray off on every frame. The
+    clips are read in place (channels-last view); the result is a view in
+    that layout over memory ordered [B, T, 3, S1, S2]."""
+    b, t, s1, s2, c = x_u8.shape
+    rep = lambda v: v.repeat_interleave(t)
+    gray_off = torch.full((b * t,), -1, dtype=torch.int32, device=x_u8.device)
+    y = fused_jitter_normalize(
+        x_u8.reshape(b * t, s1, s2, c).permute(0, 3, 1, 2),
+        rep(params["fb"]), rep(params["fc"]), rep(params["fs"]),
+        rep(params["fh"]), gray_off, rep(params["orders"]), out_dtype=dtype,
+        mean=mean, std=std)
+    return y.reshape(b, t, c, s1, s2).permute(0, 1, 3, 4, 2)
 
 
 def normalize(x, mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.bfloat16):

@@ -22,11 +22,8 @@ from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
 from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
 from coclr_tpu_torch.train import init_surgery
 from coclr_tpu_torch.train.lr import get_lr
-from coclr_tpu_torch.utils import (malloc_trim, pin_malloc_mmap_threshold,
-                                   resolve_device)
-from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                              load_reference_state_dict,
-                                              reference_state_dict,
+from coclr_tpu_torch.utils import malloc_trim, prepare_run
+from coclr_tpu_torch.utils.checkpoint import (make_payload, resume_from,
                                               save_checkpoint)
 from coclr_tpu_torch.utils.logging import Logger, PlotterThread
 from coclr_tpu_torch.utils.meters import AverageMeter, ProgressMeter
@@ -159,24 +156,13 @@ class QueueFill:
         self.ptr = (self.ptr + rows) % len(self.filled)
 
 
-def _payload(model, optimizer, epoch, best_acc, iteration):
-    return {"epoch": epoch, "state_dict": reference_state_dict(model),
-            "best_acc": best_acc, "optimizer": optimizer.state_dict(),
-            "iteration": iteration}
-
-
 def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                  loader=None, device="cuda"):
     """Train per cfg on `device` ('cuda' unless the caller asks for 'cpu';
     raises when CUDA is asked for and missing). `dataset`, `loader` and
     `max_steps` (per epoch) are injectable for tests. Returns
     (model, optimizer, info)."""
-    device = resolve_device(device)
-    pin_malloc_mmap_threshold()
-    # float32 math stays float32 (the InfoNCE logits and the head); the
-    # bfloat16 convolutions are unaffected by these switches
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = prepare_run(device)
     is_coclr = cfg.model == "coclr"
     global_batch = cfg.batch_size
     if cfg.moco_k % global_batch:
@@ -195,13 +181,8 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     img_path, model_path, exp_path = set_path(cfg)
     start_epoch, iteration, best_acc = cfg.start_epoch, 1, 0.0
     if cfg.resume and os.path.isfile(cfg.resume):
-        ckpt = load_checkpoint(cfg.resume)
-        load_reference_state_dict(model, ckpt["state_dict"])
-        optimizer.load_state_dict(ckpt["optimizer"])
-        start_epoch = ckpt["epoch"] + 1
-        iteration = ckpt.get("iteration", 1)
-        best_acc = ckpt.get("best_acc", 0.0)
-        print(f"=> resumed '{cfg.resume}' (epoch {ckpt['epoch']})")
+        start_epoch, iteration, best_acc = resume_from(cfg.resume, model,
+                                                       optimizer)
     elif is_coclr and isinstance(cfg.pretrain, (tuple, list)) \
             and list(cfg.pretrain) != ["random", "random"]:
         init_surgery.coclr_surgery(model, tuple(cfg.pretrain))
@@ -284,8 +265,8 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                     drain(pending)
                     pending = None
                     ck = os.path.join(model_path, "preempt.pth.tar")
-                    save_checkpoint(_payload(model, optimizer, epoch - 1,
-                                             best_acc, iteration),
+                    save_checkpoint(make_payload(model, optimizer, epoch - 1,
+                                                 best_acc, iteration),
                                     filename=ck, keep_all=True)
                     print(f"=> preemption checkpoint written: {ck} "
                           f"(resume with --resume {ck})", flush=True)
@@ -311,7 +292,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                 is_best = train_acc > best_acc
                 best_acc = max(train_acc, best_acc)
                 save_checkpoint(
-                    _payload(model, optimizer, epoch, best_acc, iteration),
+                    make_payload(model, optimizer, epoch, best_acc, iteration),
                     is_best=is_best, gap=cfg.save_freq,
                     filename=os.path.join(model_path, f"epoch{epoch}.pth.tar"),
                     keep_all="k400" in cfg.dataset)

@@ -45,3 +45,16 @@ def resolve_device(device):
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+def prepare_run(device):
+    """What every entry point of the port does first: the torch.device
+    (resolve_device), the malloc pin, and float32 matmuls and convolutions
+    kept in float32 (no TF32; the bfloat16 convolutions are unaffected)."""
+    import torch
+
+    dev = resolve_device(device)
+    pin_malloc_mmap_threshold()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev

@@ -1,5 +1,6 @@
-"""Checkpoint IO in the reference's `.pth.tar` format (main_nce.py:
-{'epoch', 'state_dict', 'best_acc', 'optimizer', 'iteration'}), with the
+"""Checkpoint IO in the reference's `.pth.tar` format (main_nce.py and
+eval/main_classifier.py: {'epoch', 'state_dict', 'best_acc', 'optimizer',
+'iteration'}), for the pretraining models and the classifier alike, with the
 rotation semantics of coclr_tpu/utils/checkpoint.py (the reference's
 utils/utils.py save_checkpoint): saving epoch N removes epoch N - gap unless
 keep_all, and at most 5 `model_best_*` files are kept.
@@ -73,3 +74,22 @@ def save_checkpoint(payload: Dict[str, Any], is_best: bool = False,
 def load_checkpoint(filename: str, map_location="cpu") -> Dict[str, Any]:
     """Inverse of save_checkpoint (tensors, numbers and dicts only)."""
     return torch.load(filename, map_location=map_location, weights_only=True)
+
+
+def make_payload(model, optimizer, epoch: int, best_acc: float,
+                 iteration: int) -> Dict[str, Any]:
+    """The checkpoint of a model and its optimizer, reference layout."""
+    return {"epoch": epoch, "state_dict": reference_state_dict(model),
+            "best_acc": best_acc, "optimizer": optimizer.state_dict(),
+            "iteration": iteration}
+
+
+def resume_from(path: str, model, optimizer):
+    """Load a make_payload checkpoint into model (strict) and optimizer;
+    returns (start epoch, iteration, best_acc) to carry on from."""
+    ckpt = load_checkpoint(path)
+    load_reference_state_dict(model, ckpt["state_dict"])
+    optimizer.load_state_dict(ckpt["optimizer"])
+    print(f"=> resumed '{path}' (epoch {ckpt['epoch']})")
+    return (ckpt["epoch"] + 1, ckpt.get("iteration", 1),
+            ckpt.get("best_acc", 0.0))

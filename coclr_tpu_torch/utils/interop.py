@@ -16,6 +16,8 @@ coclr_tpu/utils/torch_interop.py (torch_from_flax_*):
 S3D members are emitted twice, under their own name and under the
 reference's duplicate `blockN.i` registration. The queues stay [K, dim], the
 port's layout; CoCLR's sampler is emitted as `sampler.*`.
+`classifier_state_dict_from_jax` does the same for the eval suite's
+LinearClassifier.
 """
 
 from __future__ import annotations
@@ -149,4 +151,22 @@ def state_dict_from_jax(params_q, stats_q, params_k=None, stats_k=None,
             sd[key] = torch.from_numpy(np.array(val, dtype=np.int64))
     if queue_ptr is not None:
         sd["queue_ptr"] = torch.tensor([int(queue_ptr)], dtype=torch.long)
+    return sd
+
+
+def classifier_state_dict_from_jax(params, stats) -> Dict[str, torch.Tensor]:
+    """A LinearClassifier of the JAX package (params / batch_stats) -> the
+    port's LinearClassifier state dict ({'backbone.*', 'final_bn.*' where
+    the head has one, 'final_fc.*'}), the reference classifier's keys."""
+    sd = {"backbone." + k: v for k, v in backbone_state_dict_from_jax(
+        params["backbone"], stats.get("backbone", {})).items()}
+    if "final_bn" in params:
+        bn = backbone_state_dict_from_jax({"final_bn": params["final_bn"]},
+                                          {"final_bn": stats["final_bn"]})
+        sd.update(bn)
+    fc = params["final_fc"]
+    sd["final_fc.weight"] = torch.from_numpy(
+        np.array(np.asarray(fc["kernel"], dtype=np.float32).T))
+    sd["final_fc.bias"] = torch.from_numpy(
+        np.array(fc["bias"], dtype=np.float32))
     return sd

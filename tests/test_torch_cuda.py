@@ -310,3 +310,105 @@ def test_coclr_step_with_full_queue_on_card_matches_cpu(dev, dtype):
         if key.startswith("encoder_q.") and "running" not in key \
                 and "num_batches" not in key:
             assert float((s1[key] - val).abs().max()) <= 2 * lr + 1e-6, key
+
+
+@pytest.mark.cuda
+def test_eval_preprocess_on_card_matches_cpu(dev):
+    """The classifier train preprocess (uint8 flip, then one jitter launch
+    with gray off over a channels-last view) on the card against the plain
+    version on the CPU, on the same draws with every clip's jitter on:
+    float32 median abs difference < 1e-5 and mean < 1e-3 (HSV branch ties
+    flip on ULPs); bfloat16 more than 1 bf16 ULP off on at most 1e-3 of the
+    outputs."""
+    from coclr_tpu_torch.evalsuite import steps
+
+    gen = torch.Generator().manual_seed(6)
+    seq = torch.randint(0, 256, (8, 4, 32, 32, 3), generator=gen,
+                        dtype=torch.uint8)
+    draws = steps.draw_eval_jitter_params(
+        gen, 8, p=1.0, strength=steps.TRAIN_JITTER["strength"])
+    draws["do_flip"] = torch.arange(8) % 2 == 0
+    on_card = {k: v.to(dev) for k, v in draws.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        want = steps.apply_train_preprocess(seq, draws, dtype).float()
+        launches = jitter.KERNEL.launches
+        got = steps.apply_train_preprocess(seq.to(dev), on_card, dtype)
+        assert jitter.KERNEL.launches == launches + 1
+        d = (got.float().cpu() - want).abs()
+        if dtype == torch.float32:
+            assert float(d.median()) < 1e-5 and float(d.mean()) < 1e-3
+        else:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(1e-30))) - 7)
+            assert float((d > ulp).float().mean()) <= 1e-3
+
+
+def _classifier_step(d, dtype, train_what, seed=0):
+    """One SGD step of a small S3D classifier (He-scaled convs, the
+    reference's N(0, 0.01) head, dropout 0) on `d`; returns (loss, launches
+    of each kernel, the head's weight gradient on the CPU)."""
+    from coclr_tpu_torch.config import EvalConfig
+    from coclr_tpu_torch.evalsuite import driver, steps
+
+    cfg = EvalConfig(net="s3d", seq_len=8, img_dim=32, train_what=train_what,
+                     optim="sgd", lr=0.01, dropout=0.0, compute_dtype=dtype)
+    model = driver.build_model(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv3d):
+                mod.weight.normal_(0.0, (2.0 / mod.weight[0].numel()) ** 0.5,
+                                   generator=gen)
+    model.to(d)
+    opt = steps.make_classifier_optimizer(cfg, model)
+    seq = torch.randint(0, 256, (4, 8, 32, 32, 3), generator=gen,
+                        dtype=torch.uint8)
+    label = torch.randint(0, 101, (4,), generator=gen)
+    draws = steps.draw_train_preprocess(gen, 4)
+    before = (jitter.KERNEL.launches, pool.KERNEL.launches)
+    x = steps.apply_train_preprocess(seq.to(d), {k: v.to(d) for k, v in
+                                                 draws.items()}, cfg.dtype)
+    m = steps.train_step(model, opt, x, label.to(d), cfg.lr)
+    return (float(m["loss"]), (jitter.KERNEL.launches - before[0],
+                               pool.KERNEL.launches - before[1]),
+            model.final_fc.weight.grad.float().cpu())
+
+
+@pytest.mark.cuda
+def test_finetune_step_on_card_matches_cpu(dev):
+    """One `ft` step of a small S3D classifier on the card (both kernels)
+    against the same step in float32 on the CPU (plain versions), TF32 off
+    and cuDNN deterministic: float32 loss within rtol 1e-4 and the head's
+    gradient within 1e-2 of its norm; a bfloat16 step on the card beside
+    it gives a finite loss. The float32 forward of a randomly initialised
+    S3D with batch-statistics BN at B = 4 differs between the card and the
+    CPU even on the same input, and an N(0, 1) head (large logits) turns
+    that into more than 1e-4 of the loss, so the head keeps the
+    reference's N(0, 0.01) init."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cpu_loss, _, cpu_grad = _classifier_step("cpu", "float32", "ft")
+        card_loss, launches, card_grad = _classifier_step(dev, "float32", "ft")
+        bf16_loss, _, _ = _classifier_step(dev, "bfloat16", "ft")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+    assert launches == (1, 37)
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    assert float((card_grad - cpu_grad).norm()) <= 1e-2 * float(cpu_grad.norm())
+    assert math.isfinite(bf16_loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train_what,launches", [("ft", (1, 37)),
+                                                 ("last", (1, 0))])
+def test_classifier_step_launch_counts(dev, train_what, launches):
+    """A classifier step launches the jitter kernel once, and the pool
+    backward 37 times for `ft` and never for `last` (no backward runs
+    through the frozen backbone)."""
+    loss, got, _ = _classifier_step(dev, "bfloat16", train_what)
+    assert got == launches and math.isfinite(loss)
