@@ -54,10 +54,27 @@ non-zero exit on failure:
      (RGB ten-crop + flow center-crop) and mode s (the two caches);
 8. CoCLR step with a full queue on a device-resident batch (sibling masks,
    top-k mining, the self-drop, Adam), timed, and the profiler window;
-9. one JSON line {"kernels": [...]} with each kernel's launches (per path
+9. ddp: data parallelism through the entry points, in spawned processes
+   started as torchrun starts them (RANK, WORLD_SIZE, LOCAL_RANK,
+   MASTER_ADDR, MASTER_PORT), each loading the kernels built in phase 1:
+   - run_pretrain InfoNCE at full width for 6 steps as the one rank of an
+     NCCL group; launches per step, the checkpoint read back strictly;
+   - two ranks sharing cuda:0 over gloo (--dist-backend gloo; NCCL refuses
+     two ranks on one card): InfoNCE for one epoch (6 steps of 32 clips a
+     rank, global 64), a CoCLR step with a full queue on device-resident
+     batches, and main_classifier --train_what ft for 3 steps and
+     validation. After each, encoder_q (the classifier) is bit-identical
+     on both ranks (a gathered sha256), queue_ptr is steps x 64 mod 2048,
+     the CoCLR rows hold rank 0's names and sampler keys before rank 1's,
+     only rank 0 wrote checkpoints (read back strictly), and each rank
+     launched jitter once and pool 37 times a step. Per-rank loop and
+     device-resident step times, peak memory and the time of one
+     shuffle-BN gather (two processes sharing one card over gloo: the
+     distributed logic, not a multi-GPU throughput);
+10. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
-10. last line: {"ok": true, "device": {...}}.
+11. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -128,7 +145,9 @@ def phase_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    return card
 
 
 def jitter_inputs(frames, size, dev, gen):
@@ -921,6 +940,283 @@ def phase_jitter_eval(dev):
     return result
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_on_all_ranks(tensors, world):
+    """True when the bytes of `tensors` are equal on every rank (a sha256
+    on each rank, gathered over the host group)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as tdist
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    digests = [None] * world.size
+    tdist.all_gather_object(digests, h.hexdigest(), group=world.host_group)
+    return len(set(digests)) == 1
+
+
+def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
+    """One rank of the ddp phase, in a process of its own on cuda:0, started
+    the way torchrun starts it (RANK, WORLD_SIZE, LOCAL_RANK 0, MASTER_ADDR,
+    MASTER_PORT): InfoNCE through run_pretrain at full width for one epoch
+    of 6 steps; with 2 ranks also the shuffle-BN gather timed, the
+    device-resident InfoNCE step timed, a CoCLR step with a full queue and
+    main_classifier --train_what ft for 3 steps and validation. Writes its
+    results to out/rank<rank>-of-<world_size>.json; a failed check raises."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as tdist
+    from coclr_tpu_torch import main_classifier
+    from coclr_tpu_torch.evalsuite.driver import run_classifier_train
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.models.moco import MoCo, draw_shuffle, l2_normalize
+    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
+    from coclr_tpu_torch.parallel import dist
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+    from coclr_tpu_torch.train.pretrain import run_pretrain
+
+    dev = torch.device("cuda", 0)
+    tag = f"{world_size}-rank {backend}, rank {rank}"
+    work = os.path.join(out, f"w{world_size}-rank{rank}")
+    os.makedirs(work)
+    res = {"rank": rank}
+
+    cfg = full_width("infonce", data_root, dist_backend=backend)
+    model, info, per_step, counts, peak = run_counted(cfg, work, 6)
+    world = dist.maybe_initialize(dev, backend)
+    check(world is not None and world.size == world_size
+          and tdist.get_backend() == backend,
+          f"[ddp {tag}] the process group is not {world_size} x {backend}")
+    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
+          f"[ddp {tag}] unexpected launches per step: {per_step}")
+    rows = 6 * B * world_size
+    check(int(model.queue_ptr) == rows % K, f"[ddp {tag}] queue_ptr")
+    check(same_on_all_ranks(list(model.encoder_q.parameters()) + [model.queue],
+                            world),
+          f"[ddp {tag}] encoder_q or the queue differs between ranks")
+    res["infonce"] = dict(counts=counts, per_step=per_step, peak=peak,
+                          step_ms=statistics.median(info["step_s"][2:]) * 1e3,
+                          ckpt=os.path.join(info["model_path"],
+                                            "epoch0.pth.tar"))
+    print(f"[ddp {tag}] InfoNCE loop: {len(info['step_s'])} steps of "
+          f"{B} clips a rank ({B * world_size} global), launches {counts}, "
+          f"median step {res['infonce']['step_ms']:.1f} ms after 2 warm-up, "
+          f"peak device memory {peak / 2**30:.2f} GiB; encoder_q and the "
+          f"queue equal on every rank, queue_ptr {rows % K}", force=True,
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    if world_size > 1:
+        # one shuffle-BN gather: this rank's key clips [B, 3, T, S, S] bf16
+        x = torch.randn(B, 3, T, S, S, device=dev).to(torch.bfloat16)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.gather_rows(x, world.group)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["gather_ms"] = statistics.median(times[1:]) * 1e3
+        res["gather_bytes"] = x.numel() * x.element_size()
+        del x
+
+        # InfoNCE and CoCLR (full queue) steps on device-resident batches
+        gen = torch.Generator(dev).manual_seed(10 + rank)
+        perm = draw_shuffle(torch.Generator().manual_seed(0), B * world.size)
+        u8 = lambda: torch.randint(0, 256, (B, 2, T, S, S, 3), dtype=torch.uint8,
+                                   device=dev, generator=gen)
+        aug = lambda: torch.randint(0, 2, (B, 2), dtype=torch.uint8, device=dev,
+                                    generator=gen)
+        for variant in ("infonce", "coclr"):
+            cfg = full_width(variant, "", dataset="ucf101-2stream-2clip",
+                             topk=5)
+            model = MoCo("s3d", DIM, K, torch.bfloat16,
+                         variant=variant).to(dev).train()
+            batch = {"seq": u8(), "aug_base": aug()}
+            if variant == "coclr":
+                names = torch.Generator(dev).manual_seed(2)
+                model.queue_label.fill_(1)
+                model.queue_vname.copy_(torch.randint(0, 100, (K,), device=dev,
+                                                      generator=names))
+                batch = {"seq_rgb": u8(), "seq_flow": u8(), "aug_base": aug(),
+                         "vname": torch.randint(0, 100, (B,), dtype=torch.int32,
+                                                device=dev, generator=gen)}
+            opt = make_optimizer(cfg, model.encoder_q.parameters())
+            ddp = dist.wrap(model.encoder_q, world)
+            pre = make_pretrain_preprocess(cfg)
+
+            def step():
+                return pretrain_step(model, opt, pre(batch, gen), 1e-3, cfg,
+                                     ddp=ddp, perm=perm)
+
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_counts()
+            if variant == "coclr":
+                augmented = pre(batch, gen)
+                with torch.no_grad():
+                    kf = l2_normalize(model.sampler(
+                        augmented["seq_flow"][:, 1].permute(0, 4, 1, 2, 3)
+                        .contiguous()).float())
+                metrics = pretrain_step(model, opt, augmented, 1e-3, cfg,
+                                        ddp=ddp, perm=perm)
+            else:
+                metrics = step()
+            one = {name: k.launches for name, k in build.KERNELS.items()}
+            check(one == {"jitter": 1, "pool1d_bwd": 37},
+                  f"[ddp {tag}] {variant} step launches {one}")
+            check(math.isfinite(float(metrics["loss"])),
+                  f"[ddp {tag}] {variant} step loss")
+            check(same_on_all_ranks(list(model.encoder_q.parameters()), world),
+                  f"[ddp {tag}] encoder_q differs between ranks after the "
+                  f"{variant} step")
+            if variant == "coclr":
+                check(float(metrics["queue_is_full"]) == 1.0,
+                      f"[ddp {tag}] the CoCLR gate is not open")
+                vnames = dist.gather_rows(batch["vname"], world.group)
+                keys = dist.gather_rows(kf, world.group)
+                rows = B * world.size
+                check(torch.equal(model.queue_vname[:rows].int(), vnames)
+                      and int(model.queue_ptr) == rows,
+                      f"[ddp {tag}] queue_vname rows are not in rank order")
+                err = float((model.queue_second[:rows] - keys).abs().max())
+                check(err <= 2e-2, f"[ddp {tag}] queue_second rows are not the "
+                                   f"sampler keys in rank order ({err})")
+                res["coclr_open"] = dict(counts=one, key_err=err)
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step()["loss"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[f"{variant}_dev_ms"] = statistics.median(ms[1:])
+            res[f"{variant}_dev_peak"] = torch.cuda.max_memory_allocated()
+            print(f"[ddp {tag}] {variant} step on a device-resident batch: "
+                  f"launches {one}, loss {float(metrics['loss']):.4f}, median "
+                  f"{res[f'{variant}_dev_ms']:.1f} ms, peak "
+                  f"{res[f'{variant}_dev_peak'] / 2**30:.2f} GiB; encoder_q "
+                  f"equal on every rank", force=True, flush=True)
+            del model, opt, ddp, batch
+            torch.cuda.empty_cache()
+
+        # main_classifier --train_what ft: 3 steps and validation
+        ccfg = main_classifier.cfg_from_args(main_classifier.parse_args(
+            eval_argv(data_root, "--train_what", "ft", "--epochs", "1",
+                      "--pretrain", pretrained, "--dist-backend", backend)))
+        (cmodel, _, cinfo), ccounts, _, cpeak = counted(
+            lambda: run_classifier_train(ccfg, max_steps=3, device="cuda"),
+            work)
+        n = len(cinfo["step_s"])
+        cper = {k: c / n for k, c in ccounts.items()}
+        check(n == 3 and cper == {"jitter": 1, "pool1d_bwd": 37},
+              f"[ddp {tag}] finetune: {n} steps, launches {ccounts}")
+        check(math.isfinite(cinfo["loss"]) and math.isfinite(cinfo["val"]["loss"]),
+              f"[ddp {tag}] finetune loss")
+        check(same_on_all_ranks(list(cmodel.parameters()), world),
+              f"[ddp {tag}] the classifier differs between ranks")
+        res["finetune"] = dict(counts=ccounts, per_step=cper, peak=cpeak,
+                               val=cinfo["val"],
+                               step_ms=statistics.median(cinfo["step_s"][1:]) * 1e3)
+        print(f"[ddp {tag}] finetune: 3 steps of {B} clips a rank, launches "
+              f"{ccounts}, validation {cinfo['val']}, peak "
+              f"{cpeak / 2**30:.2f} GiB; the classifier equal on every rank",
+              force=True, flush=True)
+    with open(os.path.join(out, f"rank{rank}-of-{world_size}.json"), "w") as f:
+        json.dump(res, f)
+    tdist.barrier(group=world.host_group)
+    tdist.destroy_process_group()
+
+
+def phase_ddp(work, data_root, pretrained, card):
+    """Data parallelism through the entry points, in spawned processes that
+    load the kernels built in phase 1: (a) run_pretrain InfoNCE as the one
+    rank of an NCCL group (torchrun --nproc_per_node 1); (b) two ranks that
+    share cuda:0 over gloo (--dist-backend gloo; NCCL refuses two ranks on
+    one card): InfoNCE for one epoch (global batch 64), a CoCLR step with
+    a full queue, and the finetune with validation. Only rank 0 writes
+    checkpoints. Two processes sharing one card measure the distributed
+    logic, not multi-GPU throughput."""
+    import torch
+    import torch.multiprocessing as tmp
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  load_reference_state_dict)
+
+    out = os.path.join(work, "ddp")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    paths = {}
+    for world_size, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.time()
+        tmp.spawn(ddp_rank, args=(world_size, backend, free_port(), out,
+                                  data_root, pretrained), nprocs=world_size)
+        ranks = []
+        for r in range(world_size):
+            with open(os.path.join(out, f"rank{r}-of-{world_size}.json")) as f:
+                ranks.append(json.load(f))
+        wrote = [sorted(glob_ckpts(os.path.join(out, f"w{world_size}-rank{r}")))
+                 for r in range(world_size)]
+        check(wrote[0] and not any(wrote[1:]),
+              f"[ddp] checkpoints not written by rank 0 alone: {wrote}")
+        back = MoCo("s3d", DIM, K, torch.bfloat16)
+        ckpt = load_checkpoint(ranks[0]["infonce"]["ckpt"])
+        load_reference_state_dict(back, ckpt["state_dict"])
+        check(int(back.queue_ptr) == 6 * B * world_size % K,
+              "[ddp] checkpoint read back wrong")
+        name = f"ddp_{backend}_{world_size}rank"
+        add = lambda key: {k: sum(r[key]["counts"][k] for r in ranks)
+                           for k in ("jitter", "pool1d_bwd")}
+        paths[name] = {"counts": add("infonce"),
+                       "per_step": ranks[0]["infonce"]["per_step"]}
+        print(f"[ddp] {world_size} x {backend} on {card}: "
+              f"{time.time() - t0:.1f} s; "
+              f"launches {paths[name]['counts']} (per rank and step "
+              f"{paths[name]['per_step']}); checkpoints {wrote[0]} from rank 0 "
+              f"only, read back strictly; per-rank InfoNCE loop step "
+              f"{[round(r['infonce']['step_ms'], 1) for r in ranks]} ms, peak "
+              f"{[round(r['infonce']['peak'] / 2**30, 2) for r in ranks]} GiB",
+              flush=True)
+        if world_size > 1:
+            paths["ddp_gloo_2rank_coclr_open"] = {
+                "counts": add("coclr_open"),
+                "per_step": ranks[0]["coclr_open"]["counts"]}
+            paths["ddp_gloo_2rank_finetune"] = {
+                "counts": add("finetune"),
+                "per_step": ranks[0]["finetune"]["per_step"]}
+            g = ranks[0]["gather_bytes"]
+            print(f"[ddp] 2 ranks sharing one card ({card}) over gloo (not a "
+                  f"multi-GPU throughput): one shuffle-BN gather of {g} B a rank "
+                  f"{[round(r['gather_ms'], 2) for r in ranks]} ms; "
+                  f"device-resident steps per rank: InfoNCE "
+                  f"{[round(r['infonce_dev_ms'], 1) for r in ranks]} ms "
+                  f"(peak {[round(r['infonce_dev_peak'] / 2**30, 2) for r in ranks]}"
+                  f" GiB), CoCLR full queue "
+                  f"{[round(r['coclr_dev_ms'], 1) for r in ranks]} ms; "
+                  f"finetune loop step "
+                  f"{[round(r['finetune']['step_ms'], 1) for r in ranks]} ms",
+                  flush=True)
+            paths["ddp_gloo_2rank"]["ranks"] = ranks
+    return paths
+
+
+def glob_ckpts(root):
+    return [os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".pth.tar")]
+
+
 def profile_steps(step, n, expect=("jitter", "pool1d_bwd")):
     """torch.profiler over n synchronized steps: prints the device busy
     share, the device time per step of the 10 device ops that take most and
@@ -988,7 +1284,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    phase_build()
+    card = phase_build()
     jit = phase_jitter(dev)
     jit_eval = phase_jitter_eval(dev)
     pool = phase_pool(dev)
@@ -1019,12 +1315,14 @@ def main():
         phase_fusion(work, pretrained, paths["ncrop"]["json"],
                      paths["ncrop_flow"]["json"], paths["retrieval"]["cache"],
                      paths["retrieval_flow"]["cache"])
+        paths["coclr_open"] = phase_coclr_device(dev)
+        paths.update(phase_ddp(work, data_root, pretrained, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    paths["coclr_open"] = phase_coclr_device(dev)
 
     trained = ("infonce", "ubernce", "coclr_gated", "coclr_open", "finetune",
-               "probe")
+               "probe", "ddp_nccl_1rank", "ddp_gloo_2rank",
+               "ddp_gloo_2rank_coclr_open", "ddp_gloo_2rank_finetune")
 
     def launches(name):
         return {"launches": sum(p["counts"][name] for p in paths.values()),

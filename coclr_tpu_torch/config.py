@@ -53,6 +53,11 @@ class PretrainConfig:
     data_root: str = ""
     worker_mode: str = "thread"
 
+    # data parallelism across ranks (parallel/dist.py)
+    bn_shuffle: str = "gather"          # gather | none (alltoall: not ported)
+    dist_backend: str = "nccl"          # nccl | gloo (the CPU is always gloo)
+    num_devices: int = 0                # 0, or the launcher's WORLD_SIZE
+
     @property
     def dtype(self):
         return DTYPES[self.compute_dtype]
@@ -95,6 +100,8 @@ class EvalConfig:
     compute_dtype: str = "bfloat16"
     data_root: str = ""
     worker_mode: str = "thread"
+    dist_backend: str = "nccl"
+    num_devices: int = 0
 
     @property
     def dtype(self):

@@ -16,6 +16,12 @@ process feeds all chips. Two worker modes:
 
 Shuffle semantics: per-epoch reshuffle with seed=epoch like
 DistributedSampler.set_epoch (main_nce.py:255-260); drop_last=True.
+
+With `process_shard` and drop_last=False (a validation split across ranks)
+the final, partial global batch is padded to a multiple of the process
+count with its last sample, as coclr_tpu/evalsuite/driver.py pads it for
+the devices, and every batch carries `valid` (float32, 0 on the padding
+rows).
 """
 
 from __future__ import annotations
@@ -218,10 +224,6 @@ class Loader:
                 raise ValueError(
                     f"global batch {batch_size} not divisible by "
                     f"process count {world}")
-            if world > 1 and not drop_last:
-                raise ValueError("process_shard requires drop_last=True "
-                                 "(a ragged final batch cannot be sharded "
-                                 "evenly across hosts)")
         self.process_shard = process_shard
         self._bs = (batch_size // process_shard[1]
                     if process_shard else batch_size)
@@ -244,19 +246,44 @@ class Loader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _order(self) -> np.ndarray:
-        """This host's sample order: the full epoch order, or (multi-host)
-        its contiguous per-batch block of it — len(self) * self._bs ids."""
-        idx = np.arange(len(self.dataset))
+    def _order(self):
+        """This host's sample order and the size of each of its batches: the
+        full epoch order, or (multi-host) its contiguous block of each
+        global batch. Returns (ids, sizes, valid): `valid` is None, or
+        (with process_shard and drop_last=False) 1.0 per real row and 0.0
+        per padding row of the padded final batch."""
+        n = len(self.dataset)
+        idx = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        if self.process_shard is not None:
-            rank, world = self.process_shard
-            nb = len(self)
-            lo = rank * self._bs
-            idx = idx[:nb * self.batch_size].reshape(
-                nb, self.batch_size)[:, lo:lo + self._bs].ravel()
-        return idx
+        nb = len(self)
+        full = n // self.batch_size
+        rest = n - full * self.batch_size if nb > full else 0
+        if self.process_shard is None:
+            sizes = [self._bs] * full + ([rest] if rest else [])
+            return idx[:sum(sizes)], sizes, None
+        rank, world = self.process_shard
+        lo = rank * self._bs
+        blocks = [idx[:full * self.batch_size].reshape(
+            full, self.batch_size)[:, lo:lo + self._bs].ravel()]
+        sizes = [self._bs] * full
+        valid = [np.ones(full * self._bs, np.float32)]
+        if rest:
+            per = -(-rest // world)
+            tail = idx[full * self.batch_size:]
+            tail = np.concatenate([tail, np.repeat(tail[-1:], per * world - rest)])
+            blocks.append(tail[rank * per:(rank + 1) * per])
+            sizes.append(per)
+            valid.append((rank * per + np.arange(per) < rest)
+                         .astype(np.float32))
+        return (np.concatenate(blocks), sizes,
+                None if self.drop_last else np.concatenate(valid))
+
+    def _batch(self, samples, valid, start: int, size: int):
+        batch = collate(samples)
+        if valid is not None:
+            batch["valid"] = valid[start:start + size]
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.worker_mode == "process":
@@ -265,19 +292,20 @@ class Loader:
             yield from self._iter_thread()
 
     def _iter_thread(self):
-        order = self._order()
-        nb = len(self)
+        order, sizes, valid = self._order()
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def produce():
             try:
-                for bi in range(nb):
+                start = 0
+                for size in sizes:
                     if stop.is_set():
                         return
-                    ids = order[bi * self._bs:(bi + 1) * self._bs]
+                    ids = order[start:start + size]
                     samples = list(self._pool.map(self.dataset.__getitem__, ids))
-                    q.put(collate(samples))
+                    q.put(self._batch(samples, valid, start, size))
+                    start += size
                 q.put(None)
             except BaseException as e:  # surface worker errors to consumer
                 q.put(e)
@@ -305,9 +333,8 @@ class Loader:
         pool.free.extend(pool.ready.values())  # abandoned iterator's holds
         pool.ready.clear()
         ready = pool.ready
-        order = self._order()
-        nb = len(self)
-        total = nb * self._bs
+        order, sizes, valid = self._order()
+        total = len(order)
         dispatched = 0
 
         def recv(block: bool):
@@ -359,10 +386,11 @@ class Loader:
             dispatch_pending()
 
         dispatch()
-        for bi in range(nb):
+        start = 0
+        for size in sizes:
             samples = []
             batch_slots: List[int] = []
-            for pos in range(bi * self._bs, (bi + 1) * self._bs):
+            for pos in range(start, start + size):
                 while pos not in ready:
                     recv(block=True)
                     dispatch_pending()
@@ -370,7 +398,9 @@ class Loader:
                 samples.append(_unpack_sample(pool.layout,
                                               pool.slot_view(slot)))
                 batch_slots.append(slot)
-            batch = collate(samples)  # np.stack copies out of the shm views
+            # np.stack copies out of the shm views
+            batch = self._batch(samples, valid, start, size)
+            start += size
             del samples  # drop memoryview-backed arrays before slot reuse
             pool.free.extend(batch_slots)
             dispatch()

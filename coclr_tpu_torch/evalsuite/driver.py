@@ -1,9 +1,18 @@
-"""Finetune / linear-probe driver on one device, ported from
-coclr_tpu/evalsuite/driver.py (the reference's eval/main_classifier.py):
-experiment-dir naming, the train_what policy, the eval datasets, the
-tolerant load of a pretrained backbone, and the train loop with validation,
-best accuracy and the epoch checkpoint in the reference `.pth.tar` layout
-(with `model_best` and rotation, and --resume).
+"""Finetune / linear-probe driver on one card or as one rank of several,
+ported from coclr_tpu/evalsuite/driver.py (the reference's
+eval/main_classifier.py): experiment-dir naming, the train_what policy, the
+eval datasets, the tolerant load of a pretrained backbone, and the train
+loop with validation, best accuracy and the epoch checkpoint in the
+reference `.pth.tar` layout (with `model_best` and rotation, and --resume).
+
+Under a distributed launcher (parallel/dist.py) each rank trains on its
+block of every global batch of batch_size x ranks clips with its own
+preprocess and dropout draws, and validates its block of every global
+validation batch: the loader pads the final, partial one to a multiple of
+the ranks and marks the padding rows not valid, as the JAX driver pads it
+for the devices, and the eval step sums over the ranks. Only rank 0 reads
+--resume and --pretrain (the model, the optimizer state and the loop
+position are then broadcast from it) and writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -19,8 +28,9 @@ from coclr_tpu_torch.data import datasets as D
 from coclr_tpu_torch.data.loader import Loader
 from coclr_tpu_torch.evalsuite import steps
 from coclr_tpu_torch.models.classifier import LinearClassifier
+from coclr_tpu_torch.parallel import dist
 from coclr_tpu_torch.train.lr import step_schedule
-from coclr_tpu_torch.train.pretrain import upload
+from coclr_tpu_torch.train.pretrain import NullSink, step_seed, upload
 from coclr_tpu_torch.utils import malloc_trim, prepare_run
 from coclr_tpu_torch.utils.checkpoint import (load_checkpoint, make_payload,
                                               resume_from, save_checkpoint)
@@ -105,44 +115,61 @@ def load_pretrained_backbone(model: LinearClassifier, path: str
 
 
 def _squeeze(batch):
-    """The dataset's single window [B, 1, T, S, S, 3] -> [B, T, S, S, 3]."""
-    return {"seq": batch["seq"][:, 0], "label": batch["label"]}
+    """The dataset's single window [B, 1, T, S, S, 3] -> [B, T, S, S, 3],
+    with the labels and the loader's `valid` rows where it pads."""
+    out = {"seq": batch["seq"][:, 0], "label": batch["label"]}
+    if "valid" in batch:
+        out["valid"] = batch["valid"]
+    return out
 
 
 def run_classifier_train(cfg: EvalConfig, train_dataset=None,
                          val_dataset=None, max_steps: int = 0,
                          device="cuda"):
     """Finetune or linear-probe per cfg on `device` ('cuda' unless the
-    caller asks for 'cpu'; raises when CUDA is asked for and missing).
-    Datasets and `max_steps` (per epoch, train and validation) are
-    injectable for tests. Returns (model, optimizer, info)."""
+    caller asks for 'cpu'; raises when CUDA is asked for and missing), as
+    one rank of several under a distributed launcher. Datasets and
+    `max_steps` (per epoch, train and validation) are injectable for
+    tests. Returns (model, optimizer, info)."""
     device = prepare_run(device)
+    world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices)
+    rank, ranks = (world.rank, world.size) if world else (0, 1)
     model = build_model(cfg).to(device)
     optimizer = steps.make_classifier_optimizer(cfg, model)
 
     img_path, model_path, exp_path = set_path(cfg)
-    start_epoch, iteration, best_acc = cfg.start_epoch, 1, 0.0
-    if cfg.resume and os.path.isfile(cfg.resume):
-        start_epoch, iteration, best_acc = resume_from(cfg.resume, model,
-                                                       optimizer)
+    start = [cfg.start_epoch, 1, 0.0]
+    if world is not None and not world.primary:
+        pass  # the seeded init, replaced by rank 0's below
+    elif cfg.resume and os.path.isfile(cfg.resume):
+        start = list(resume_from(cfg.resume, model, optimizer))
     elif cfg.pretrain:
         load_pretrained_backbone(model, cfg.pretrain)
     else:
         print("=> train from scratch")
+    start_epoch, iteration, best_acc = dist.from_primary(model, optimizer,
+                                                         start, world)
+    ddp = dist.wrap(model, world) if world else None
 
     if train_dataset is None:
         train_dataset = build_eval_dataset(cfg, "train")
     if val_dataset is None:
         val_dataset = build_eval_dataset(cfg, "val")
-    train_loader = Loader(train_dataset, cfg.batch_size,
+    shard = (rank, ranks) if world else None
+    global_batch = cfg.batch_size * ranks
+    train_loader = Loader(train_dataset, global_batch,
                           num_workers=cfg.workers, seed=cfg.seed,
-                          worker_mode=cfg.worker_mode)
-    val_loader = Loader(val_dataset, cfg.batch_size, shuffle=False,
+                          worker_mode=cfg.worker_mode, process_shard=shard)
+    val_loader = Loader(val_dataset, global_batch, shuffle=False,
                         num_workers=cfg.workers, drop_last=False,
-                        seed=cfg.seed, worker_mode=cfg.worker_mode)
+                        seed=cfg.seed, worker_mode=cfg.worker_mode,
+                        process_shard=shard)
 
-    plotter = PlotterThread(os.path.join(img_path, "train"))
-    logger = Logger(img_path)
+    if world is None or world.primary:
+        plotter = PlotterThread(os.path.join(img_path, "train"))
+        logger = Logger(img_path)
+    else:
+        plotter = logger = NullSink()
     gen = torch.Generator(device)
     step_s, val = [], {}
     train_loss = float("nan")
@@ -159,15 +186,15 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
             if pending is not None:
                 for name, key in (("Loss", "loss"), ("acc@1", "top1"),
                                   ("acc@5", "top5")):
-                    meters[name].update(float(pending[key]), cfg.batch_size)
+                    meters[name].update(float(pending[key]), global_batch)
 
         end = time.time()
         for idx, batch in enumerate(train_loader):
             batch = upload(_squeeze(batch), device)
-            gen.manual_seed(cfg.seed * 1_000_003 + iteration)
+            gen.manual_seed(step_seed(cfg.seed, iteration, rank))
             x = steps.preprocess_train(batch["seq"], gen, cfg.dtype)
             metrics = steps.train_step(model, optimizer, x, batch["label"], lr,
-                                       drop_gen=gen)
+                                       drop_gen=gen, ddp=ddp)
             drain(pending)  # waits for step i-1 while step i runs
             pending = metrics
             step_s.append(time.time() - end)
@@ -190,32 +217,37 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
         plotter.add_data("global/loss", train_loss, epoch)
         plotter.add_data("global/top1", meters["acc@1"].avg, epoch)
 
-        val = validate(model, val_loader, cfg, device, max_steps)
+        val = validate(model, val_loader, cfg, device, max_steps,
+                       group=world.group if world else None)
         print(f"val epoch {epoch}: loss {val['loss']:.4f} "
               f"top1 {val['top1']:.4f}")
         logger.log(f"val epoch {epoch} top1 {val['top1']:.4f}")
         is_best = val["top1"] > best_acc
         best_acc = max(val["top1"], best_acc)
-        save_checkpoint(make_payload(model, optimizer, epoch, best_acc,
-                                     iteration),
-                        is_best=is_best, gap=1,
-                        filename=os.path.join(model_path,
-                                              f"epoch{epoch}.pth.tar"))
+        if world is None or world.primary:
+            save_checkpoint(make_payload(model, optimizer, epoch, best_acc,
+                                         iteration),
+                            is_best=is_best, gap=1,
+                            filename=os.path.join(model_path,
+                                                  f"epoch{epoch}.pth.tar"))
     plotter.close()
     return model, optimizer, {"best_acc": best_acc, "exp_path": exp_path,
                               "loss": train_loss, "val": val,
                               "step_s": step_s}
 
 
-def validate(model, loader, cfg: EvalConfig, device, max_steps: int = 0):
-    """Means of the eval step's metrics over the loader's clips."""
+def validate(model, loader, cfg: EvalConfig, device, max_steps: int = 0,
+             group=None):
+    """Means of the eval step's metrics over the loader's clips (of every
+    rank of `group`; padding rows do not count)."""
     vmeters = {k: AverageMeter(k) for k in ("loss", "top1", "top5")}
     for vidx, batch in enumerate(loader):
         batch = upload(_squeeze(batch), device)
         x = steps.preprocess_eval(batch["seq"], cfg.dtype)
-        m, _, _ = steps.eval_step(model, x, batch["label"])
+        m, _, _ = steps.eval_step(model, x, batch["label"],
+                                  batch.get("valid"), group=group)
         for k, meter in vmeters.items():
-            meter.update(float(m[k]), batch["seq"].shape[0])
+            meter.update(float(m[k]), float(m["count"]))
         if max_steps and vidx + 1 >= max_steps:
             break
     return {k: meter.avg for k, meter in vmeters.items()}

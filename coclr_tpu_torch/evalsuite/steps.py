@@ -12,6 +12,11 @@ coclr_tpu/evalsuite/steps.py (the reference's eval/main_classifier.py).
   apply are split (`draw_train_preprocess`, `apply_train_preprocess`).
 - The train step: cross-entropy, top-1 / top-5, the update scaled per
   group; the eval step: the same metrics as means over the valid rows.
+- As one rank of several (parallel/dist.py), the train step runs the model
+  in DistributedDataParallel, whose backward averages the gradients over
+  the ranks (the JAX step's pmean; with the backbone frozen only the head
+  takes part), and averages the metrics; the eval step sums its metrics
+  and count over the ranks before it divides (the JAX step's psum).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from coclr_tpu_torch.models.moco import topk_accuracy
 from coclr_tpu_torch.ops.augment import (apply_eval_jitter,
                                          draw_eval_jitter_params, normalize)
+from coclr_tpu_torch.parallel.dist import all_mean_dict, all_sum
 from coclr_tpu_torch.parallel.train_step import to_ncdhw
 
 TRAIN_JITTER = dict(p=0.3, strength=(0.4, 0.4, 0.4, 0.1))
@@ -95,13 +101,15 @@ def _per_row_loss(logits, label):
 
 
 def train_step(model, optimizer, x, label, lr: float,
-               drop_gen: torch.Generator = None):
+               drop_gen: torch.Generator = None, ddp=None):
     """One update on preprocessed clips x [B, T, S, S, 3] (JAX layout) with
     integer labels [B]. The model is put in train mode (its backbone stays
-    in eval mode when frozen). Returns device-tensor metrics {'loss',
-    'top1', 'top5'}."""
+    in eval mode when frozen). `ddp`: the model in DistributedDataParallel
+    over the ranks' process group, or None for one process. Returns
+    device-tensor metrics {'loss', 'top1', 'top5'}, averaged over the
+    ranks."""
     model.train()
-    logits, _ = model(to_ncdhw(x), drop_gen)
+    logits, _ = (model if ddp is None else ddp)(to_ncdhw(x), drop_gen)
     loss = _per_row_loss(logits, label).mean()
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -109,25 +117,30 @@ def train_step(model, optimizer, x, label, lr: float,
         group["lr"] = lr * group["lr_scale"]
     optimizer.step()
     top1, top5 = topk_accuracy(logits.detach(), label.long())
-    return {"loss": loss.detach(), "top1": top1, "top5": top5}
+    return all_mean_dict({"loss": loss.detach(), "top1": top1, "top5": top5},
+                         None if ddp is None else ddp.process_group)
 
 
 @torch.no_grad()
-def eval_step(model, x, label, valid=None):
+def eval_step(model, x, label, valid=None, group=None):
     """Metrics of eval-mode logits on preprocessed clips x, as exact means
     over the rows where `valid` ([B] of 0 / 1, default all) is 1, so padded
-    rows do not count. Returns (metrics {'loss', 'top1', 'top5', 'count'},
-    logits, feature)."""
+    rows do not count; with a process `group`, over the valid rows of
+    every rank. Returns (metrics {'loss', 'top1', 'top5', 'count'}, this
+    rank's logits, feature)."""
     model.eval()
     logits, feat = model(to_ncdhw(x))
     label = label.long()
     valid = (torch.ones(logits.shape[0], device=logits.device)
              if valid is None else valid.to(torch.float32))
     correct = logits.topk(5, dim=1).indices == label[:, None]
-    sums = {"loss": torch.sum(_per_row_loss(logits, label) * valid),
-            "top1": torch.sum(correct[:, :1].any(dim=1).float() * valid),
-            "top5": torch.sum(correct.any(dim=1).float() * valid)}
-    count = valid.sum()
-    metrics = {k: v / torch.clamp_min(count, 1.0) for k, v in sums.items()}
+    sums = torch.stack([torch.sum(_per_row_loss(logits, label) * valid),
+                        torch.sum(correct[:, :1].any(dim=1).float() * valid),
+                        torch.sum(correct.any(dim=1).float() * valid),
+                        valid.sum()])
+    sums = all_sum(sums, group)
+    count = sums[3]
+    metrics = {k: sums[i] / torch.clamp_min(count, 1.0)
+               for i, k in enumerate(("loss", "top1", "top5"))}
     metrics["count"] = count
     return metrics, logits, feat

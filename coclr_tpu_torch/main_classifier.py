@@ -3,10 +3,19 @@
 
 Takes the flags of the repository's eval/main_classifier.py (the
 reference's eval/main_classifier.py flags plus the JAX package's knobs).
-Flags the port does not act on (GPU selection, mesh, sequence-parallel and
-checkpoint-format knobs, and reference flags with no effect there) are
-accepted and ignored. `--device` picks the device: cuda (the default) or
-cpu.
+`--device` picks the device: cuda (the default; cuda:LOCAL_RANK under
+torchrun) or cpu. Training also runs on N cards, one process each:
+
+    torchrun --nproc_per_node N -m coclr_tpu_torch.main_classifier \
+        --train_what ft|last|all [flags]
+
+with `--batch_size` per card, `--dist-backend` (nccl, or gloo when asked;
+the CPU is always gloo) and `--num_devices` (when set, it must equal
+WORLD_SIZE) acted on. The --test paths run in one process, as they do on
+one device in the JAX package, and refuse a launch of several. Accepted
+and ignored: `--gpu`, `--sp_size`, `--sph_size`, `--ckpt_format`, and
+reference flags with no effect there (`--num_seq`, `--num_fc`,
+`--eval_freq`, `--reset_lr`, `--cos`).
 
   train:      --train_what last|ft|all [--pretrain <pretrain .pth.tar>]
   retrieval:  --test <pretrain .pth.tar> --retrieval [--dirname feature]
@@ -57,11 +66,14 @@ def parse_args(argv=None):
     parser.add_argument('--eval_freq', default=1, type=int)
     parser.add_argument('--reset_lr', action='store_true')
     parser.add_argument('--cos', action='store_true')
-    parser.add_argument('--num_devices', default=0, type=int)
     parser.add_argument('--sp_size', default=1, type=int)
     parser.add_argument('--sph_size', default=1, type=int)
     parser.add_argument('--ckpt_format', default='flax', type=str)
     # acted on by the port
+    parser.add_argument('--dist-backend', default='nccl', type=str,
+                        choices=['nccl', 'gloo'])
+    parser.add_argument('--num_devices', default=0, type=int,
+                        help='0, or the number of ranks (WORLD_SIZE)')
     parser.add_argument('--compute_dtype', default='bfloat16', type=str,
                         choices=['bfloat16', 'float32'])
     parser.add_argument('--data_root', default='', type=str)
@@ -88,16 +100,23 @@ def cfg_from_args(args):
         center_crop=args.center_crop, five_crop=args.five_crop,
         prefix=args.prefix, max_windows=args.max_windows,
         compute_dtype=args.compute_dtype, data_root=args.data_root,
-        worker_mode=args.worker_mode)
+        worker_mode=args.worker_mode, dist_backend=args.dist_backend,
+        num_devices=args.num_devices)
 
 
 def run_test(cfg, device, dirname=None):
     """--test: retrieval from a pretraining checkpoint, or the N-crop test
-    of a classifier checkpoint."""
+    of a classifier checkpoint, in one process."""
     from coclr_tpu_torch.data import hostaug
     from coclr_tpu_torch.evalsuite import driver, ncrop, retrieval
+    from coclr_tpu_torch.parallel import dist
     from coclr_tpu_torch.utils import prepare_run
     from coclr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    if dist.launched() and int(os.environ["WORLD_SIZE"]) > 1:
+        raise RuntimeError(
+            "--test (retrieval, N-crop) runs in one process: launch it "
+            "without torchrun, or with --nproc_per_node 1")
 
     device = prepare_run(device)
     model = driver.build_model(cfg)

@@ -1,12 +1,14 @@
 """CoCLR co-training CLI of the port:
-`python -m coclr_tpu_torch.main_coclr [flags]`.
+`python -m coclr_tpu_torch.main_coclr [flags]`, or on N cards
+`torchrun --nproc_per_node N -m coclr_tpu_torch.main_coclr [flags]`.
 
 Takes the flags of the repository's main_coclr.py: `--topk`, `--reverse`
 and `--pretrain <to-train> <sampler>` (two `.pth.tar` files; `random random`
-trains from scratch). The knobs the port does not act on (torch-distributed
-launch flags, mesh, sequence-parallel, multihost, aug-backend and
-checkpoint-format knobs) are accepted and ignored, as in main_nce.
-`--device` picks the device: cuda (the default) or cpu.
+trains from scratch). The data-parallel flags (`--dist-backend`,
+`--bn_shuffle`, `--num_devices`) are acted on and the rest accepted and
+ignored, as in main_nce (its docstring lists them: `--dcn_size`,
+`--sp_size` and `--sph_size` among them). `--device` picks the device:
+cuda (the default) or cpu.
 """
 
 from coclr_tpu_torch.main_nce import build_parser, cfg_from_args

@@ -1,13 +1,23 @@
 """InfoNCE / UberNCE pretraining CLI of the port:
 `python -m coclr_tpu_torch.main_nce [flags]` (`--model infonce` or
-`ubernce`).
+`ubernce`), on one card, or on N cards with one process each:
+
+    torchrun --nproc_per_node N -m coclr_tpu_torch.main_nce [flags]
 
 Takes the flags of the repository's main_nce.py (the reference's
-main_nce.py flags plus the JAX package's knobs). Flags the port does not act
-on (torch-distributed launch flags, mesh, sequence-parallel, aug-backend and
-checkpoint-format knobs) are accepted and ignored. `--device` picks the
-device: cuda (the default) or cpu. `build_parser(coclr=True)` gives the
-flags of main_coclr.py (coclr_tpu_torch/main_coclr.py).
+main_nce.py flags plus the JAX package's knobs). `--device` picks the
+device: cuda (the default; cuda:LOCAL_RANK under torchrun) or cpu. Under a
+launcher these are acted on: `--batch_size` (per card: the global batch is
+batch_size x ranks), `--dist-backend` (nccl, or gloo when asked; the CPU is
+always gloo), `--bn_shuffle` (gather or none; alltoall raises) and
+`--num_devices` (when set, it must equal WORLD_SIZE). Accepted and ignored:
+`--gpu`, `--world-size`, `--rank`, `--dist-url`,
+`--multiprocessing-distributed`, `--local_rank` (torchrun's environment
+gives them), the mesh and sequence-parallel knobs `--dcn_size`, `--sp_size`
+and `--sph_size`, `--multihost` and its flags, `--aug_backend`,
+`--aug_order`, `--profile_steps`, `--ckpt_format` and `--reset_lr`.
+`build_parser(coclr=True)` gives the flags of main_coclr.py
+(coclr_tpu_torch/main_coclr.py).
 """
 
 import argparse
@@ -50,19 +60,23 @@ def build_parser(coclr: bool = False):
     parser.add_argument('--name_prefix', default='', type=str)
     parser.add_argument('-j', '--workers', default=16, type=int)
     parser.add_argument('--seed', default=0, type=int)
+    # data parallelism, acted on by the port (parallel/dist.py)
+    parser.add_argument('--dist-backend', default='nccl', type=str,
+                        choices=['nccl', 'gloo'])
+    parser.add_argument('--bn_shuffle', default='gather', type=str,
+                        choices=['gather', 'none', 'alltoall'])
+    parser.add_argument('--num_devices', default=0, type=int,
+                        help='0, or the number of ranks (WORLD_SIZE)')
     # accepted for CLI compatibility and ignored
     parser.add_argument('--gpu', default=None)
     parser.add_argument('--world-size', default=-1, type=int)
     parser.add_argument('--rank', default=-1, type=int)
     parser.add_argument('--dist-url', default='env://', type=str)
-    parser.add_argument('--dist-backend', default='nccl', type=str)
     parser.add_argument('--multiprocessing-distributed', action='store_true')
     parser.add_argument('--local_rank', default=-1, type=int)
     parser.add_argument('--reset_lr', action='store_true')
-    parser.add_argument('--bn_shuffle', default='gather', type=str)
     parser.add_argument('--aug_backend', default='auto', type=str)
     parser.add_argument('--aug_order', default='shuffle', type=str)
-    parser.add_argument('--num_devices', default=0, type=int)
     parser.add_argument('--dcn_size', default=1, type=int)
     parser.add_argument('--sp_size', default=1, type=int)
     parser.add_argument('--sph_size', default=1, type=int)
@@ -111,7 +125,9 @@ def cfg_from_args(args):
         moco_t=args.moco_t, cos=args.cos, topk=getattr(args, 'topk', 5),
         reverse=getattr(args, 'reverse', False),
         compute_dtype=args.compute_dtype,
-        data_root=args.data_root, worker_mode=args.worker_mode)
+        data_root=args.data_root, worker_mode=args.worker_mode,
+        bn_shuffle=args.bn_shuffle, dist_backend=args.dist_backend,
+        num_devices=args.num_devices)
 
 
 def main(argv=None):

@@ -10,9 +10,13 @@ queues are stored [K, dim] so the enqueue writes rows; the reference's
 (utils/checkpoint.py). The queue pointer stays on the device and the
 enqueue indexes with it, so a step never waits for the card.
 
-On one device the key batch shuffle is skipped: a permutation within the
-one BN batch changes neither the BN statistics nor the unshuffled keys
-(coclr_tpu/models/moco.py encode_keys).
+Across ranks (parallel/dist.py) the key batch is shuffled before the key
+encode and unshuffled after it (`batch_shuffle`, `batch_unshuffle`: the
+`gather` form of coclr_tpu/models/moco.py), so that each rank's BatchNorm
+statistics cover keys drawn from every rank, and the enqueue writes the
+keys of all ranks in rank order. In one process the shuffle is skipped: a
+permutation within the one BN batch changes neither the BN statistics nor
+the unshuffled keys (coclr_tpu/models/moco.py encode_keys).
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import torch
 from torch import nn
 
 from coclr_tpu_torch.models.encoder import ProjectionEncoder, init_params_
+from coclr_tpu_torch.parallel.dist import gather_rows, rank_of
 
 NEG_INF = -1e30
 VARIANTS = ("infonce", "ubernce", "coclr")
+BN_SHUFFLES = ("gather", "none")
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
@@ -133,14 +139,59 @@ def coclr_mask(kf, k_vsource, queue_second, queue_vname, queue_label,
     return torch.cat([ones, mask], dim=1).to(torch.float32)
 
 
+def draw_shuffle(gen: torch.Generator, n: int) -> torch.Tensor:
+    """The permutation of the global key batch of n rows that every rank
+    shares: a draw on the host from `gen`, which each rank seeds alike
+    (the part of the JAX step's shared rng_shuffle)."""
+    return torch.randperm(n, generator=gen)
+
+
+def check_bn_shuffle(mode: str, world_size: int) -> None:
+    """Raise on a --bn_shuffle the port does not run across ranks."""
+    if mode == "alltoall" and world_size > 1:
+        raise NotImplementedError(
+            "--bn_shuffle alltoall (coclr_tpu/models/moco.py "
+            "batch_shuffle_alltoall) is not ported yet (ROADMAP.md, Queue 1); "
+            "use gather or none")
+    if mode not in BN_SHUFFLES + ("alltoall",):
+        raise ValueError(f"unknown --bn_shuffle {mode!r}")
+
+
+def batch_shuffle(x, perm, group):
+    """This rank's slice of the global key batch under `perm` (the same on
+    every rank): all-gather the rows in rank order, take rows perm[r * b:
+    (r + 1) * b]. Returns (rows, the inverse permutation)."""
+    b = x.shape[0]
+    r = rank_of(group)
+    perm = perm.to(x.device, non_blocking=True)
+    mine = perm[r * b:(r + 1) * b]
+    return gather_rows(x, group).index_select(0, mine), torch.argsort(perm)
+
+
+def batch_unshuffle(k, inv, group):
+    """The keys of this rank's own rows again: all-gather the encoded keys
+    and take rows inv[r * b:(r + 1) * b]."""
+    b = k.shape[0]
+    r = rank_of(group)
+    return gather_rows(k, group).index_select(0, inv[r * b:(r + 1) * b])
+
+
 @torch.no_grad()
 def dequeue_and_enqueue(queue, queue_ptr, keys, *, queue_label=None,
                         labels=None, queue_second=None, keys_second=None,
-                        queue_vname=None, vnames=None) -> None:
+                        queue_vname=None, vnames=None, group=None) -> None:
     """Write `keys` (and per variant labels, second-modality keys, video
-    names) at the ring pointer and advance it (K % batch == 0). CoCLR
-    writes queue_label = 1 beside the names: its is-filled flag, not the
-    class."""
+    names) at the ring pointer and advance it (K % batch == 0). With a
+    process `group` each is first all-gathered, rank 0's rows first, so
+    every rank writes the same global batch. CoCLR writes queue_label = 1
+    beside the names: its is-filled flag, not the class."""
+    keys = gather_rows(keys, group)
+    if labels is not None:
+        labels = gather_rows(labels, group)
+    if keys_second is not None:
+        keys_second = gather_rows(keys_second, group)
+    if vnames is not None:
+        vnames = gather_rows(vnames, group)
     bs = keys.shape[0]
     idx = queue_ptr + torch.arange(bs, device=queue.device)
     queue.index_copy_(0, idx, keys.to(queue.dtype))

@@ -1,5 +1,6 @@
-"""The single-GPU pretrain step for InfoNCE, UberNCE and CoCLR, ported from
-coclr_tpu/parallel/train_step.py::_pretrain_step.
+"""The pretrain step for InfoNCE, UberNCE and CoCLR, on one card or as one
+rank of several, ported from coclr_tpu/parallel/train_step.py::
+_pretrain_step.
 
 EMA of the key encoder, key encode (train-mode BN, no gradients), for CoCLR
 the frozen sampler's encode of the other modality (eval mode), the masks
@@ -16,6 +17,17 @@ so the step never waits for the card:
   state; here the backward still runs and `optimizer.step()` is skipped,
   which gives the same state. The loop keeps the gate's host mirror
   (train/pretrain.py QueueFill).
+
+As one rank of several (the JAX step under shard_map over the `data`
+axis), the step takes encoder_q wrapped in DistributedDataParallel
+(parallel/dist.py wrap), whose backward averages the gradients over the
+ranks (the JAX step's pmean), and the shared permutation of the global key
+batch: the keys are shuffled across ranks around the key encode
+(--bn_shuffle gather; none skips it), the metrics are averaged over the
+ranks, and the enqueue writes the keys, labels, sampler keys and video
+names of every rank in rank order. CoCLR's masks still come from this
+rank's rows against the queues as they were before the enqueue, and
+`drop_self` is this rank's own draw.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from coclr_tpu_torch.models import moco
+from coclr_tpu_torch.parallel.dist import all_mean_dict, size_of
 
 
 def make_optimizer(cfg, params):
@@ -42,15 +55,34 @@ def _encode(encoder, x):
     return moco.l2_normalize(encoder(x).to(torch.float32))
 
 
+def _encode_keys(model, x2, group, perm, bn_shuffle):
+    """The key encoder's l2-normalised keys of x2, shuffled across the ranks
+    of `group` around the encode (bn_shuffle 'gather', with 2 or more
+    ranks)."""
+    if size_of(group) == 1 or bn_shuffle == "none":
+        return _encode(model.encoder_k, x2)
+    if perm is None:
+        raise ValueError("the key batch shuffle needs the shared permutation")
+    x2, inv = moco.batch_shuffle(x2, perm, group)
+    return moco.batch_unshuffle(_encode(model.encoder_k, x2), inv, group)
+
+
 def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
-                  drop_self: bool = True, update: bool = True):
+                  drop_self: bool = True, update: bool = True, ddp=None,
+                  perm=None):
     """One step of cfg.model on an augmented batch: {'seq': [B, 2, T, H, W,
     C]} (+ 'label' for UberNCE), {'seq_rgb', 'seq_flow', 'vname'} for
     CoCLR, or for InfoNCE the clips tensor alone. Updates model and
     optimizer in place; returns device-tensor metrics {'loss', 'top1',
     'top5'} (+ 'top1_self', 'top5_self' for UberNCE and CoCLR, and
-    'queue_is_full' for CoCLR)."""
+    'queue_is_full' for CoCLR), averaged over the ranks.
+
+    `ddp`: model.encoder_q in DistributedDataParallel over the ranks'
+    process group, or None for one process; `perm`: the shared
+    permutation of the global key batch (moco.draw_shuffle), which the
+    shuffle needs with 2 or more ranks."""
     variant = model.variant
+    group = None if ddp is None else ddp.process_group
     if not isinstance(batch, dict):
         batch = {"seq": batch}
     if variant == "coclr":
@@ -65,7 +97,7 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
     moco.momentum_update(params_q, list(model.encoder_k.parameters()),
                          cfg.moco_m)
     with torch.no_grad():
-        k = _encode(model.encoder_k, x2)
+        k = _encode_keys(model, x2, group, perm, cfg.bn_shuffle)
         if variant == "coclr":
             kf = _encode(model.sampler, f2)
             mask = moco.coclr_mask(kf, batch["vname"], model.queue_second,
@@ -74,7 +106,7 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
         elif variant == "ubernce":
             mask = moco.ubernce_mask(batch["label"], model.queue_label)
 
-    q = _encode(model.encoder_q, x1)
+    q = _encode(model.encoder_q if ddp is None else ddp, x1)
     logits = moco.moco_logits(q, k, model.queue, cfg.moco_t)
     if variant == "infonce":
         loss = moco.infonce_loss(logits)
@@ -90,8 +122,8 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     if update:
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+        for param_group in optimizer.param_groups:
+            param_group["lr"] = lr
         optimizer.step()
 
     logits = logits.detach()
@@ -99,14 +131,14 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
     metrics = {"loss": loss.detach()}
     if variant == "infonce":
         metrics["top1"], metrics["top5"] = moco.topk_accuracy(logits, zeros)
-        moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k)
-        return metrics
+        moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k, group=group)
+        return all_mean_dict(metrics, group)
     metrics["top1"], metrics["top5"] = moco.mask_accuracy(logits, mask)
     metrics["top1_self"], metrics["top5_self"] = moco.topk_accuracy(logits, zeros)
     if variant == "ubernce":
         moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k,
                                  queue_label=model.queue_label,
-                                 labels=batch["label"])
+                                 labels=batch["label"], group=group)
     else:
         metrics["queue_is_full"] = torch.all(
             model.queue_label != -1).to(torch.float32)
@@ -114,5 +146,5 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
                                  queue_label=model.queue_label,
                                  queue_second=model.queue_second,
                                  keys_second=kf, queue_vname=model.queue_vname,
-                                 vnames=batch["vname"])
-    return metrics
+                                 vnames=batch["vname"], group=group)
+    return all_mean_dict(metrics, group)

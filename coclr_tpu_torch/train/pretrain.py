@@ -1,9 +1,19 @@
-"""Pretraining loop for InfoNCE, UberNCE and CoCLR on one device, ported
-from coclr_tpu/train/pretrain.py: experiment-dir naming, the init paths
-(resume, CoCLR's two-checkpoint surgery, weights-only --pretrain, scratch),
-meters and logging, the loader, the preprocess -> step loop, CoCLR's
-queue-fill gate, checkpoint rotation, the malloc pin and the preemption
-guard. The reference's main_nce.py and main_coclr.py loops are the model.
+"""Pretraining loop for InfoNCE, UberNCE and CoCLR on one card or as one rank
+of several, ported from coclr_tpu/train/pretrain.py: experiment-dir naming,
+the init paths (resume, CoCLR's two-checkpoint surgery, weights-only
+--pretrain, scratch), meters and logging, the loader, the preprocess ->
+step loop, CoCLR's queue-fill gate, checkpoint rotation, the malloc pin and
+the preemption guard. The reference's main_nce.py and main_coclr.py loops
+are the model.
+
+Under a distributed launcher (parallel/dist.py) each rank takes
+`batch_size` clips of a global batch of batch_size x ranks: the loader
+gives rank r its block of every global batch, the step averages gradients
+and metrics over the ranks and enqueues the global batch, the preprocess
+and CoCLR's self-drop draw per rank, and the key shuffle's permutation is
+drawn alike on every rank. Only rank 0 reads the init files (the model,
+the optimizer state and the loop position are then broadcast from it) and
+writes checkpoints and logs; the preemption flag is agreed once per step.
 """
 
 from __future__ import annotations
@@ -17,8 +27,9 @@ import torch
 from coclr_tpu_torch.config import PretrainConfig
 from coclr_tpu_torch.data import datasets as D
 from coclr_tpu_torch.data.loader import Loader
-from coclr_tpu_torch.models.moco import MoCo
+from coclr_tpu_torch.models.moco import MoCo, check_bn_shuffle, draw_shuffle
 from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
+from coclr_tpu_torch.parallel import dist
 from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
 from coclr_tpu_torch.train import init_surgery
 from coclr_tpu_torch.train.lr import get_lr
@@ -82,13 +93,13 @@ def build_dataset(cfg: PretrainConfig):
     raise ValueError(f"unknown or not yet ported dataset {cfg.dataset!r}")
 
 
-_UPLOAD = ("seq", "seq_rgb", "seq_flow", "aug_base", "label", "vname")
+_UPLOAD = ("seq", "seq_rgb", "seq_flow", "aug_base", "label", "vname", "valid")
 
 
 def upload(batch, device):
     """Host numpy batch -> device tensors (pinned, asynchronous on CUDA):
-    the clips, the augmentation flags, and the labels and source ids that
-    UberNCE and CoCLR read."""
+    the clips, the augmentation flags, the labels and source ids that
+    UberNCE and CoCLR read, and a validation batch's valid rows."""
     out = {}
     for key in _UPLOAD:
         if key not in batch:
@@ -137,6 +148,51 @@ class _PreemptionGuard:
         return False
 
 
+class NullSink:
+    """The Logger and PlotterThread of a rank other than 0."""
+
+    def log(self, *args):
+        pass
+
+    def add_data(self, *args):
+        pass
+
+    def close(self):
+        pass
+
+
+# each rank's per-step draws are seeded apart by this stride, rank 0 as one
+# process; the shared permutation's seed is offset by SHUFFLE_SEED
+RANK_SEED_STRIDE = 1 << 32
+SHUFFLE_SEED = 1 << 62
+
+
+def step_seed(seed: int, iteration: int, rank: int = 0) -> int:
+    """The seed of a rank's draws at `iteration` (rank 0: the one-process
+    seed)."""
+    return seed * 1_000_003 + iteration + rank * RANK_SEED_STRIDE
+
+
+def init_model(model, optimizer, cfg, world):
+    """--resume, CoCLR's two-checkpoint init, --pretrain or scratch, read by
+    rank 0 alone and broadcast to the others with the loop position;
+    returns (start epoch, iteration, best_acc)."""
+    is_coclr = cfg.model == "coclr"
+    start = [cfg.start_epoch, 1, 0.0]
+    if world is not None and not world.primary:
+        pass  # the seeded scratch init, replaced by rank 0's below
+    elif cfg.resume and os.path.isfile(cfg.resume):
+        start = list(resume_from(cfg.resume, model, optimizer))
+    elif is_coclr and isinstance(cfg.pretrain, (tuple, list)) \
+            and list(cfg.pretrain) != ["random", "random"]:
+        init_surgery.coclr_surgery(model, tuple(cfg.pretrain))
+    elif cfg.pretrain and not is_coclr:
+        init_surgery.init_pretrain_weights(model, cfg.pretrain)
+    else:
+        print("=> train from scratch")
+    return tuple(dist.from_primary(model, optimizer, start, world))
+
+
 class QueueFill:
     """Host mirror of CoCLR's queue-fill gate: the queue rows written so far
     (queue_label != -1) and the ring pointer, read from the device once when
@@ -159,18 +215,23 @@ class QueueFill:
 def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                  loader=None, device="cuda"):
     """Train per cfg on `device` ('cuda' unless the caller asks for 'cpu';
-    raises when CUDA is asked for and missing). `dataset`, `loader` and
-    `max_steps` (per epoch) are injectable for tests. Returns
+    raises when CUDA is asked for and missing), as one rank of several
+    under a distributed launcher. `dataset`, `loader` (this rank's batches)
+    and `max_steps` (per epoch) are injectable for tests. Returns
     (model, optimizer, info)."""
     device = prepare_run(device)
+    world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices)
+    rank, ranks = (world.rank, world.size) if world else (0, 1)
+    primary = rank == 0
+    check_bn_shuffle(cfg.bn_shuffle, ranks)
     is_coclr = cfg.model == "coclr"
-    global_batch = cfg.batch_size
+    global_batch = cfg.batch_size * ranks
     if cfg.moco_k % global_batch:
         raise ValueError(f"moco_k={cfg.moco_k} must be divisible by the "
-                         f"batch {global_batch}")
+                         f"global batch {global_batch}")
 
     print(f"=> creating {cfg.model} model with '{cfg.net}' backbone on "
-          f"{device}")
+          f"{device}" + (f", {ranks} ranks" if world else ""))
     model = MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype,
                  gen=torch.Generator().manual_seed(cfg.seed),
                  variant=cfg.model).to(device)
@@ -179,30 +240,27 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     preprocess = make_pretrain_preprocess(cfg)
 
     img_path, model_path, exp_path = set_path(cfg)
-    start_epoch, iteration, best_acc = cfg.start_epoch, 1, 0.0
-    if cfg.resume and os.path.isfile(cfg.resume):
-        start_epoch, iteration, best_acc = resume_from(cfg.resume, model,
-                                                       optimizer)
-    elif is_coclr and isinstance(cfg.pretrain, (tuple, list)) \
-            and list(cfg.pretrain) != ["random", "random"]:
-        init_surgery.coclr_surgery(model, tuple(cfg.pretrain))
-    elif cfg.pretrain and not is_coclr:
-        init_surgery.init_pretrain_weights(model, cfg.pretrain)
-    else:
-        print("=> train from scratch")
+    start_epoch, iteration, best_acc = init_model(model, optimizer, cfg, world)
     fill = QueueFill(model) if is_coclr else None
+    ddp = dist.wrap(model.encoder_q, world) if world else None
+    shuffle = ranks > 1 and cfg.bn_shuffle == "gather"
 
     if loader is None:
         if dataset is None:
             dataset = build_dataset(cfg)
         loader = Loader(dataset, batch_size=global_batch,
                         num_workers=cfg.workers, seed=cfg.seed,
-                        worker_mode=cfg.worker_mode)
+                        worker_mode=cfg.worker_mode,
+                        process_shard=(rank, ranks) if world else None)
 
-    plotter = PlotterThread(os.path.join(img_path, "train"))
-    logger = Logger(img_path)
+    if primary:
+        plotter = PlotterThread(os.path.join(img_path, "train"))
+        logger = Logger(img_path)
+    else:  # the reference logs on rank 0 only
+        plotter = logger = NullSink()
     gen = torch.Generator(device)
     self_gen = torch.Generator()  # CoCLR's self-drop draw, on the host
+    perm_gen = torch.Generator()  # the shared key permutation, on the host
 
     train_acc, train_loss = 0.0, float("nan")
     step_s = []
@@ -236,13 +294,19 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
             for idx, batch in enumerate(loader):
                 meters["Data"].update(time.time() - end)
                 batch = upload(batch, device)
-                seed = cfg.seed * 1_000_003 + iteration
+                seed = step_seed(cfg.seed, iteration, rank)
                 gen.manual_seed(seed)
                 self_gen.manual_seed(seed ^ 0x5EED)
                 drop_self = bool(torch.rand((), generator=self_gen) < 0.9)
+                perm = None
+                if shuffle:
+                    perm_gen.manual_seed(step_seed(cfg.seed, iteration)
+                                         + SHUFFLE_SEED)
+                    perm = draw_shuffle(perm_gen, global_batch)
                 metrics = pretrain_step(
                     model, optimizer, preprocess(batch, gen), lr, cfg,
-                    drop_self=drop_self, update=fill is None or fill.full)
+                    drop_self=drop_self, update=fill is None or fill.full,
+                    ddp=ddp, perm=perm)
                 if fill is not None:
                     fill.advance(global_batch)
                 drain(pending)  # waits for step i-1 while step i runs
@@ -261,13 +325,18 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                                      iteration)
                 iteration += 1
                 steps_this_epoch += 1
-                if guard.flagged:
+                # agreed by every rank, so that none leaves the loop while
+                # another waits in the next step's collectives
+                if dist.agree_flag(guard.flagged, world):
+                    guard.flagged = True
                     drain(pending)
                     pending = None
                     ck = os.path.join(model_path, "preempt.pth.tar")
-                    save_checkpoint(make_payload(model, optimizer, epoch - 1,
-                                                 best_acc, iteration),
-                                    filename=ck, keep_all=True)
+                    if primary:
+                        save_checkpoint(make_payload(model, optimizer,
+                                                     epoch - 1, best_acc,
+                                                     iteration),
+                                        filename=ck, keep_all=True)
                     print(f"=> preemption checkpoint written: {ck} "
                           f"(resume with --resume {ck})", flush=True)
                     preempted = True
@@ -291,11 +360,14 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
             if (epoch % cfg.save_freq == 0) or (epoch == cfg.epochs - 1):
                 is_best = train_acc > best_acc
                 best_acc = max(train_acc, best_acc)
-                save_checkpoint(
-                    make_payload(model, optimizer, epoch, best_acc, iteration),
-                    is_best=is_best, gap=cfg.save_freq,
-                    filename=os.path.join(model_path, f"epoch{epoch}.pth.tar"),
-                    keep_all="k400" in cfg.dataset)
+                if primary:
+                    save_checkpoint(
+                        make_payload(model, optimizer, epoch, best_acc,
+                                     iteration),
+                        is_best=is_best, gap=cfg.save_freq,
+                        filename=os.path.join(model_path,
+                                              f"epoch{epoch}.pth.tar"),
+                        keep_all="k400" in cfg.dataset)
 
     if preempted:
         print(f"Training preempted at ep {epoch}; resume from "
@@ -305,4 +377,5 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     plotter.close()
     return model, optimizer, {"best_acc": best_acc, "exp_path": exp_path,
                               "train_acc": train_acc, "loss": train_loss,
-                              "preempted": preempted, "step_s": step_s}
+                              "preempted": preempted, "step_s": step_s,
+                              "iteration": iteration, "ranks": ranks}

@@ -37,13 +37,20 @@ def malloc_trim() -> bool:
 
 def resolve_device(device):
     """torch.device for an entry point: raises when CUDA is asked for and is
-    not there (the port never carries on on the CPU unless asked to)."""
+    not there (the port never carries on on the CPU unless asked to). In a
+    process a distributed launcher started (RANK and WORLD_SIZE set),
+    'cuda' is cuda:LOCAL_RANK, made the current device."""
     import torch
+
+    from coclr_tpu_torch.parallel import dist
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
+    if dev.type == "cuda" and dev.index is None and dist.launched():
+        dev = torch.device("cuda", dist.local_rank())
+        torch.cuda.set_device(dev)
     return dev
 
 

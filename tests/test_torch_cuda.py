@@ -10,6 +10,7 @@ without the suite's conftest:
 import itertools
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -412,3 +413,52 @@ def test_classifier_step_launch_counts(dev, train_what, launches):
     through the frozen backbone)."""
     loss, got, _ = _classifier_step(dev, "bfloat16", train_what)
     assert got == launches and math.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_match_two_ranks_on_cpu(dev, tmp_path):
+    """One InfoNCE step of S3D on float clips as two gloo ranks sharing the
+    card (tests/torch_ddp_ranks.py; each rank launches the pool kernel 37
+    times), against the same two ranks on the CPU through the plain
+    versions, in float32 with TF32 off, 4 clips a rank: the ranks'
+    parameters and queues are bit-identical on the card, and against the
+    CPU the tolerances of the CoCLR step above hold: loss rtol 1e-4, queue
+    rows atol 1e-4, and each encoder_q element within 2 lr (Adam's first
+    step moves it by at most lr)."""
+    from torch_ddp_ranks import RankPool
+
+    lr, K, B, T, S, D = 1e-3, 64, 4, 8, 64, 16
+    sd = {k: v.numpy().copy() for k, v in _coclr_s3d(
+        torch.float32, D, K).state_dict().items()
+          if not k.startswith(("sampler.", "queue_second", "queue_vname",
+                               "queue_label"))}
+    gen = torch.Generator().manual_seed(6)
+    seq = (torch.randn(2 * B, 2, T, S, S, 3, generator=gen)
+           * (0.2 + 2.8 * torch.rand(2 * B, 1, 1, 1, 1, 1, generator=gen)))
+    case = dict(variant="infonce", sd=sd, lr=lr,
+                cfg=dict(net="s3d", moco_k=K, moco_dim=D, lr=lr,
+                         compute_dtype="float32"),
+                batches=[{"seq": seq.numpy()}],
+                perms=[torch.randperm(2 * B, generator=gen).numpy()],
+                drops=[[True, True]])
+    pool = RankPool(2, str(tmp_path))
+    try:
+        cpu = pool.run("pretrain", dict(case, device="cpu"))
+        card = pool.run("pretrain", dict(case, device=str(dev)))
+    finally:
+        pool.close()
+    assert [r["launches"] for r in card] == [37, 37]
+    assert [r["launches"] for r in cpu] == [0, 0]
+    s0, s1, c0 = card[0]["states"][0], card[1]["states"][0], cpu[0]["states"][0]
+    for key, val in s0.items():
+        if "running" not in key and "num_batches" not in key:
+            assert np.array_equal(val, s1[key]), key
+            assert np.array_equal(c0[key], cpu[1]["states"][0][key]), key
+    l_card, l_cpu = card[0]["metrics"][0]["loss"], cpu[0]["metrics"][0]["loss"]
+    assert math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert float(np.abs(s0["queue"] - c0["queue"]).max()) <= 1e-4
+    assert int(s0["queue_ptr"][0]) == 2 * B
+    for key, val in c0.items():
+        if key.startswith("encoder_q.") and "running" not in key \
+                and "num_batches" not in key:
+            assert float(np.abs(s0[key] - val).max()) <= 2 * lr + 1e-6, key

@@ -1,0 +1,285 @@
+"""Rank processes for the port's data-parallel tests (tests/test_torch_ddp.py,
+tests/test_torch_cuda.py).
+
+`RankPool(world, tmpdir)` spawns `world` processes that join one gloo
+process group (a file store under `tmpdir`) through
+coclr_tpu_torch.parallel.dist and then serve tasks: `pool.run(name,
+kwargs)` runs the task `name` on every rank (kwargs the same for all, or
+one dict per rank) and returns the results in rank order, raising if any
+rank failed. Inputs and results are numpy arrays and Python values. This
+module imports torch and coclr_tpu_torch only, never jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import multiprocessing as mp
+import os
+import queue
+import signal
+import traceback
+
+import numpy as np
+
+TIMEOUT_S = 300
+
+
+class RankPool:
+    def __init__(self, world: int, tmpdir: str):
+        ctx = mp.get_context("spawn")
+        init = "file://" + os.path.join(tmpdir, "ddp_store")
+        self.world = world
+        self.inq = [ctx.Queue() for _ in range(world)]
+        self.outq = ctx.Queue()
+        self.procs = [ctx.Process(target=serve,
+                                  args=(r, world, init, self.inq[r], self.outq),
+                                  daemon=True) for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self._collect()  # each rank reports once its group is up
+
+    def _collect(self):
+        out = [None] * self.world
+        for _ in range(self.world):
+            try:
+                rank, ok, value = self.outq.get(timeout=TIMEOUT_S)
+            except queue.Empty:
+                self.close()
+                raise TimeoutError("a rank did not answer within "
+                                   f"{TIMEOUT_S} s")
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            out[rank] = value
+        return out
+
+    def run(self, task: str, kwargs):
+        per_rank = kwargs if isinstance(kwargs, list) else [kwargs] * self.world
+        for q, kw in zip(self.inq, per_rank):
+            q.put((task, kw))
+        return self._collect()
+
+    def close(self):
+        for q in self.inq:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=20)
+            if p.is_alive():
+                p.terminate()
+
+
+def serve(rank, world, init_method, inq, outq):
+    import torch
+
+    from coclr_tpu_torch.parallel import dist as pdist
+
+    try:
+        torch.set_num_threads(1)
+        w = pdist.initialize(torch.device("cpu"), "gloo", rank, world,
+                             init_method=init_method)
+        solo = torch.distributed.new_group([0], backend="gloo")
+        outq.put((rank, True, None))
+    except BaseException:
+        outq.put((rank, False, traceback.format_exc()))
+        return
+    while True:
+        item = inq.get()
+        if item is None:
+            return
+        name, kwargs = item
+        try:
+            outq.put((rank, True, TASKS[name](w, solo, **kwargs)))
+        except BaseException:
+            outq.put((rank, False, traceback.format_exc()))
+
+
+def _np_state(module):
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in module.state_dict().items()}
+
+
+def _tensors(batch, dev):
+    import torch
+
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in batch.items()}
+
+
+def _on(world, dev):
+    """The World with its tensors on `dev` (the group stays gloo)."""
+    import torch
+
+    return dataclasses.replace(world, device=torch.device(dev))
+
+
+def task_pretrain(world, solo, *, variant, sd, cfg, batches, perms, drops,
+                  lr, device="cpu"):
+    """Steps of `variant` from state dict `sd`, each rank on its block of
+    every global batch, with the shared permutations `perms` and this
+    rank's self-drop `drops[i][rank]`. Returns the metrics and the state
+    after each step."""
+    import torch
+
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.kernels import pool
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.parallel import dist as pdist
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+    from coclr_tpu_torch.utils import prepare_run
+
+    prepare_run(device)  # float32 convolutions and matmuls without TF32
+    launches = pool.KERNEL.launches
+    cfg = PretrainConfig(**cfg)
+    model = MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype, variant=variant)
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()}, strict=True)
+    model.to(device).train()
+    opt = make_optimizer(cfg, model.encoder_q.parameters())
+    ddp = pdist.wrap(model.encoder_q, _on(world, device))
+    metrics, states, moments = [], [], []
+    for batch, perm, drop in zip(batches, perms, drops):
+        b = len(perm) // world.size
+        mine = _tensors({k: v[world.rank * b:(world.rank + 1) * b]
+                         for k, v in batch.items()}, device)
+        m = pretrain_step(model, opt, mine, lr, cfg, drop_self=drop[world.rank],
+                          update=True, ddp=ddp, perm=torch.from_numpy(perm))
+        metrics.append({k: float(v) for k, v in m.items()})
+        states.append(_np_state(model))
+        moments.append({"encoder_q." + n: opt.state[p]["exp_avg"].cpu().numpy()
+                        .copy() for n, p in model.encoder_q.named_parameters()})
+    return {"metrics": metrics, "states": states, "moments": moments,
+            "launches": pool.KERNEL.launches - launches}
+
+
+def task_world_one(world, solo, *, variant, sd, cfg, batches, lr):
+    """On rank 0: the same steps as one rank of a one-rank gloo group
+    (DistributedDataParallel over it) and as one plain process; returns
+    both (metrics, state)."""
+    import torch
+
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.parallel.dist import wrap
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+
+    if world.rank != 0:
+        return None
+    cfg = PretrainConfig(**cfg)
+    out = {}
+    for name in ("group", "none"):
+        model = MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype,
+                     variant=variant)
+        model.load_state_dict({k: torch.from_numpy(np.array(v))
+                               for k, v in sd.items()}, strict=True)
+        model.train()
+        opt = make_optimizer(cfg, model.encoder_q.parameters())
+        ddp = None
+        if name == "group":
+            ddp = wrap(model.encoder_q, dataclasses.replace(world, group=solo))
+        metrics = []
+        for batch in batches:
+            m = pretrain_step(model, opt, _tensors(batch, "cpu"), lr, cfg,
+                              drop_self=True, update=True, ddp=ddp,
+                              perm=torch.arange(len(batch["seq"])))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[name] = {"metrics": metrics, "state": _np_state(model)}
+    return out
+
+
+class _Samples:
+    """An in-memory dataset of samples {'seq': [1, T, S, S, 3], 'label'}."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def task_classifier(world, solo, *, cfg, sd, xs, labels, lr, val_samples):
+    """`validate` over this rank's block of every global batch of
+    `val_samples` (the loader pads the last), then train steps on this
+    rank's preprocessed clips xs[i][rank]. Returns the validation means,
+    the train metrics and the state."""
+    import torch
+
+    from coclr_tpu_torch.config import EvalConfig
+    from coclr_tpu_torch.data.loader import Loader
+    from coclr_tpu_torch.evalsuite import driver, steps
+    from coclr_tpu_torch.parallel.dist import wrap
+
+    cfg = EvalConfig(**cfg)
+    model = driver.build_model(cfg)
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()}, strict=True)
+    loader = Loader(_Samples(val_samples), cfg.batch_size * world.size,
+                    shuffle=False, drop_last=False, num_workers=1,
+                    process_shard=(world.rank, world.size))
+    rows = [list(np.asarray(b["valid"])) for b in loader]
+    val = driver.validate(model, loader, cfg, torch.device("cpu"),
+                          group=world.group)
+    opt = steps.make_classifier_optimizer(cfg, model)
+    ddp = wrap(model, world)
+    metrics = []
+    for x, label in zip(xs, labels):
+        m = steps.train_step(model, opt, torch.from_numpy(x[world.rank]),
+                             torch.from_numpy(label[world.rank]).long(), lr,
+                             ddp=ddp)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"val": val, "valid_rows": rows, "metrics": metrics,
+            "state": _np_state(model)}
+
+
+class _PreemptingLoader:
+    """Fixed batches; on `signal_rank` this process sends itself SIGTERM
+    while the batch `at` is fetched, as a scheduler preempting one node."""
+
+    def __init__(self, batches, rank, signal_rank, at):
+        self.batches, self.rank = batches, rank
+        self.signal_rank, self.at = signal_rank, at
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.batches):
+            if i == self.at and self.rank == self.signal_rank:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+
+def task_run_pretrain(world, solo, *, cfg, workdir, batches=None,
+                      signal_rank=-1, at=-1):
+    """run_pretrain in `workdir` on this rank's `batches` (a loader that
+    preempts rank `signal_rank` at batch `at`). Returns its info, or the
+    name and message of the exception it raised."""
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.train.pretrain import run_pretrain
+
+    import hashlib
+
+    os.chdir(workdir)
+    loader = (None if batches is None else
+              _PreemptingLoader(batches, world.rank, signal_rank, at))
+    try:
+        model, opt, info = run_pretrain(PretrainConfig(**cfg), loader=loader,
+                                        device="cpu")
+    except Exception as e:  # the caller checks which ranks raised what
+        return {"raised": type(e).__name__, "message": str(e)}
+    digest = hashlib.sha256()
+    for t in list(model.encoder_q.parameters()) + [model.queue,
+                                                   model.queue_ptr]:
+        digest.update(t.detach().numpy().tobytes())
+    out = {k: info[k] for k in ("preempted", "iteration", "step_s",
+                                "exp_path", "ranks")}
+    out["digest"] = digest.hexdigest()
+    out["adam_steps"] = sorted({int(s["step"]) for s in opt.state.values()})
+    return out
+
+
+TASKS = {"pretrain": task_pretrain, "world_one": task_world_one,
+         "classifier": task_classifier, "run_pretrain": task_run_pretrain}
