@@ -22,7 +22,8 @@ non-zero exit on failure:
    one full-width S3D step and at edge shapes that take every tiling of the
    kernel, in bfloat16 and float32 (post-ReLU zero ties, integer-valued g:
    exact), timed beside the backward of F.max_pool3d and of F.max_pool2d on
-   the same inputs;
+   the same inputs; then the same at the two launches of one full-width
+   ResNet-2d3d step (its stem pool's H and W axes), exact in both dtypes;
 4. InfoNCE: run_pretrain at full width (S3D, seq_len 32, img_dim 128,
    batch 32, moco-k 2048, moco-dim 128, bfloat16) for 12 steps on a
    synthetic two-stream UCF LMDB, with the launch counts of both kernels,
@@ -54,14 +55,23 @@ non-zero exit on failure:
      (RGB ten-crop + flow center-crop) and mode s (the two caches);
 8. CoCLR step with a full queue on a device-resident batch (sibling masks,
    top-k mining, the self-drop, Adam), timed, and the profiler window;
-9. ddp: data parallelism through the entry points, in spawned processes
+9. resnet: ResNet-2d3d at the same full width (--net r50, and r3d50):
+   the r50 InfoNCE loop for 6 steps with the epoch checkpoint read back
+   strictly; the device-resident r50 step (median of 5, profiled: busy
+   share, top device ops, each kernel's time in the step, peak memory);
+   the device-resident r3d50 step; the r50 CoCLR step with a full queue
+   (an r50 sampler); the r50 finetune (3 loop steps, validation, the
+   device-resident step); one RGB retrieval pass (2048-wide features).
+   Each path launches jitter once and pool1d_bwd twice a step;
+10. ddp: data parallelism through the entry points, in spawned processes
    started as torchrun starts them (RANK, WORLD_SIZE, LOCAL_RANK,
    MASTER_ADDR, MASTER_PORT), each loading the kernels built in phase 1:
    - run_pretrain InfoNCE at full width for 6 steps as the one rank of an
      NCCL group; launches per step, the checkpoint read back strictly;
    - two ranks sharing cuda:0 over gloo (--dist-backend gloo; NCCL refuses
      two ranks on one card): InfoNCE for one epoch (6 steps of 32 clips a
-     rank, global 64), a CoCLR step with a full queue on device-resident
+     rank, global 64), InfoNCE steps with the gather and the alltoall key
+     shuffle and a CoCLR step with a full queue on device-resident
      batches, and main_classifier --train_what ft for 3 steps and
      validation. After each, encoder_q (the classifier) is bit-identical
      on both ranks (a gathered sha256), queue_ptr is steps x 64 mod 2048,
@@ -69,12 +79,13 @@ non-zero exit on failure:
      only rank 0 wrote checkpoints (read back strictly), and each rank
      launched jitter once and pool 37 times a step. Per-rank loop and
      device-resident step times, peak memory and the time of one
-     shuffle-BN gather (two processes sharing one card over gloo: the
-     distributed logic, not a multi-GPU throughput);
-10. one JSON line {"kernels": [...]} with each kernel's launches (per path
+     shuffle-BN gather and of one alltoall exchange (two processes sharing
+     one card over gloo: the distributed logic, not a multi-GPU
+     throughput);
+11. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
-11. last line: {"ok": true, "device": {...}}.
+12. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -265,11 +276,11 @@ def phase_jitter(dev):
     return result
 
 
-def pool_launch_shapes(dev):
-    """(P, N, Q, k, s, lo) -> launches, for one full-width S3D
-    forward + backward of the query encoder."""
+def pool_launch_shapes(dev, net="s3d"):
+    """(P, N, Q, k, s, lo) -> launches, for one full-width forward + backward
+    of the query encoder's backbone `net`."""
     import torch
-    from coclr_tpu_torch.backbones.s3d import S3D
+    from coclr_tpu_torch.backbones import select_backbone
     from coclr_tpu_torch.kernels import pool
 
     shapes = {}
@@ -280,7 +291,7 @@ def pool_launch_shapes(dev):
         shapes[key] = shapes.get(key, 0) + 1
         return original(x, out, g, k, s, lo)
 
-    net = S3D(dtype=torch.bfloat16).to(dev).train()
+    net = select_backbone(net, dtype=torch.bfloat16)[0].to(dev).train()
     x = torch.randn(B, 3, T, S, S, device=dev)
     pool.pool1d_bwd = record
     try:
@@ -293,49 +304,50 @@ def pool_launch_shapes(dev):
     return shapes
 
 
-def phase_pool(dev):
+def pool_inputs(p, n, q, k, s, lo, dtype, dev, gen):
+    """Post-ReLU x (many exact zero ties), its pooled max and an
+    integer-valued g: the kernel's sums are exact."""
+    import torch
+    from coclr_tpu_torch.kernels import pool
+
+    x = torch.relu(torch.randn(p, n, q, device=dev, generator=gen) - 0.5
+                   ).to(dtype)
+    out = pool.pool1d_fwd(x, 1, k, s, lo)
+    g = torch.randint(-4, 5, out.shape, device=dev, generator=gen).to(dtype)
+    return x, out, g
+
+
+def measure_pool(shapes, dev, gen, tag, exact_f32=False):
+    """The kernel at each launch shape in `shapes` ({(P, N, Q, k, s, lo):
+    launches per step}) in bfloat16, bit for bit against its plain version
+    (and in float32 too with `exact_f32`), timed beside the plain version
+    and the backward of F.max_pool3d and of F.max_pool2d on the same inputs,
+    with its bound; returns the sums over one step and the rows."""
     import torch
     import torch.nn.functional as F
     from coclr_tpu_torch.kernels import pool
 
-    shapes = pool_launch_shapes(dev)
-    n_launch = sum(shapes.values())
-    print(f"[pool] {n_launch} pool1d_bwd launches per S3D backward over "
-          f"{len(shapes)} shapes", flush=True)
-    check(n_launch == 37, "expected 37 pool backward launches per step")
-    gen = torch.Generator(dev).manual_seed(1)
-
-    def inputs(p, n, q, k, s, lo, dtype):
-        x = torch.relu(torch.randn(p, n, q, device=dev, generator=gen) - 0.5
-                       ).to(dtype)  # post-ReLU: many exact zero ties
-        out = pool.pool1d_fwd(x, 1, k, s, lo)
-        g = torch.randint(-4, 5, out.shape, device=dev, generator=gen).to(dtype)
-        return x, out, g
-
-    # every tiling of the kernel (kernels/pool.py plan), in both dtypes
-    for p, n, q, k, s, lo in POOL_EDGE_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            x, out, g = inputs(p, n, q, k, s, lo, dtype)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "pool3d_ms": 0.0,
+           "pool2d_ms": 0.0, "max_abs_err": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "rows": []}
+    pool2d_ok = True
+    for (p, n, q, k, s, lo), count in sorted(shapes.items()):
+        if exact_f32:
+            x, out, g = pool_inputs(p, n, q, k, s, lo, torch.float32, dev, gen)
             check(torch.equal(pool.pool1d_bwd(x, out, g, k, s, lo),
                               pool.pool1d_bwd_plain(x, out, g, k, s, lo)),
-                  f"pool1d_bwd kernel differs from its plain version at edge "
-                  f"shape {(p, n, q, k, s, lo)} in {dtype}")
-    print(f"[pool] {len(POOL_EDGE_SHAPES)} edge shapes exact in bfloat16 and "
-          f"float32", flush=True)
-
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "pool3d_ms": 0.0,
-           "pool2d_ms": 0.0, "max_abs_err": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-    pool2d_ok = True
-    configs = set()
-    for (p, n, q, k, s, lo), count in sorted(shapes.items()):
-        configs.add((k, s, lo))
-        x, out, g = inputs(p, n, q, k, s, lo, torch.bfloat16)
+                  f"[{tag}] pool1d_bwd kernel differs from its plain version "
+                  f"at {(p, n, q, k, s, lo)} in float32")
+            del x, out, g
+            torch.cuda.empty_cache()
+        x, out, g = pool_inputs(p, n, q, k, s, lo, torch.bfloat16, dev, gen)
         got = pool.pool1d_bwd(x, out, g, k, s, lo)
         want = pool.pool1d_bwd_plain(x, out, g, k, s, lo)
         err = float((got.float() - want.float()).abs().max())
         check(torch.equal(got, want),
-              f"pool1d_bwd kernel differs from its plain version at "
+              f"[{tag}] pool1d_bwd kernel differs from its plain version at "
               f"{(p, n, q, k, s, lo)} (max abs err {err})")
+        del got, want
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         m = out.shape[1]
         nbytes = (2 * p * n * q + 2 * p * m * q) * x.element_size()
@@ -346,6 +358,7 @@ def phase_pool(dev):
         out5 = F.max_pool3d(x5, (k, 1, 1), (s, 1, 1), (lo, 0, 0))
         lib3 = cuda_ms(lambda: torch.autograd.grad(out5, x5, g.view(out5.shape),
                                                    retain_graph=True))
+        del x5, out5
         # the same function as a 2-D pool over the zero-copy [P, 1, N, Q]
         # view (first-max tie routing too); kept only if it runs everywhere
         lib2 = float("nan")
@@ -358,38 +371,79 @@ def phase_pool(dev):
                 del x4, out4
             except RuntimeError as e:
                 pool2d_ok = False
-                print(f"[pool] F.max_pool2d backward fails at "
+                print(f"[{tag}] F.max_pool2d backward fails at "
                       f"{(p, n, q, k, s, lo)}, dropped as a yardstick: {e}",
                       flush=True)
-        tot["ms"] += count * ms
-        tot["plain_ms"] += count * plain
-        tot["pool3d_ms"] += count * lib3
-        tot["pool2d_ms"] += count * lib2
         # a compare per window tap, an add per covering window (float32)
         ops = p * m * q * k + p * n * q * -(-k // s)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
-        tot["bound_ms"] += count * max(t_bytes, t_ops)
-        tot["bytes_ms"] += count * t_bytes
-        tot["ops_ms"] += count * t_ops
-        print(f"[pool] P={p} N={n} Q={q} k={k} s={s} lo={lo} x{count}: exact; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, max_pool3d backward "
+        for key, val in (("ms", ms), ("plain_ms", plain), ("pool3d_ms", lib3),
+                         ("pool2d_ms", lib2), ("bound_ms", max(t_bytes, t_ops)),
+                         ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+            tot[key] += count * val
+        tot["rows"].append(dict(shape=(p, n, q, k, s, lo), launches=count,
+                                ms=ms, plain_ms=plain, pool3d_ms=lib3,
+                                pool2d_ms=lib2, bound_ms=max(t_bytes, t_ops),
+                                bytes=nbytes))
+        print(f"[{tag}] P={p} N={n} Q={q} k={k} s={s} lo={lo} x{count}: exact"
+              f"{' (bfloat16 and float32)' if exact_f32 else ''}; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, max_pool3d backward "
               f"{lib3:.4f} ms, max_pool2d backward {lib2:.4f} ms, bound "
-              f"{max(t_bytes, t_ops):.4f} ms", flush=True)
-        del x, out, g, got, want, x5, out5
-    check({(3, 2, 1), (3, 1, 1), (2, 2, 0)} <= configs,
-          "missing an S3D pool configuration")
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B; "
+              f"{max(t_bytes, t_ops) / ms:.0%} of it)", flush=True)
+        del x, out, g
+        torch.cuda.empty_cache()
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
     libs = {"F.max_pool3d backward": tot["pool3d_ms"]}
     if pool2d_ok:
         libs["F.max_pool2d backward"] = tot["pool2d_ms"]
     tot["library"] = min(libs, key=libs.get)
     tot["library_ms"] = libs[tot["library"]]
-    print(f"[pool] per step: kernel {tot['ms']:.4f} ms, plain "
+    print(f"[{tag}] per step: kernel {tot['ms']:.4f} ms, plain "
           f"{tot['plain_ms']:.4f} ms, max_pool3d backward "
           f"{tot['pool3d_ms']:.4f} ms, max_pool2d backward "
-          f"{tot['pool2d_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; "
-          f"library_ms is {tot['library']}", flush=True)
+          f"{tot['pool2d_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+          f"({tot['bound_ms'] / tot['ms']:.0%} of it); library_ms is "
+          f"{tot['library']}", flush=True)
+    return tot
+
+
+def phase_pool(dev):
+    import torch
+    from coclr_tpu_torch.kernels import pool
+
+    shapes = pool_launch_shapes(dev)
+    n_launch = sum(shapes.values())
+    print(f"[pool] {n_launch} pool1d_bwd launches per S3D backward over "
+          f"{len(shapes)} shapes", flush=True)
+    check(n_launch == 37, "expected 37 pool backward launches per step")
+    gen = torch.Generator(dev).manual_seed(1)
+
+    # every tiling of the kernel (kernels/pool.py plan), in both dtypes
+    for p, n, q, k, s, lo in POOL_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, out, g = pool_inputs(p, n, q, k, s, lo, dtype, dev, gen)
+            check(torch.equal(pool.pool1d_bwd(x, out, g, k, s, lo),
+                              pool.pool1d_bwd_plain(x, out, g, k, s, lo)),
+                  f"pool1d_bwd kernel differs from its plain version at edge "
+                  f"shape {(p, n, q, k, s, lo)} in {dtype}")
+    print(f"[pool] {len(POOL_EDGE_SHAPES)} edge shapes exact in bfloat16 and "
+          f"float32", flush=True)
+
+    check({(3, 2, 1), (3, 1, 1), (2, 2, 0)} <= {key[3:] for key in shapes},
+          "missing an S3D pool configuration")
+    tot = measure_pool(shapes, dev, gen, "pool")
+
+    # the ResNet-2d3d stem pool (r50 and r3d50 alike): its H and W launches
+    r50 = pool_launch_shapes(dev, "r50")
+    stem = B * 64 * (T // 2)  # the stem's [B, 64, T/2, S/2, S/2] output
+    check(r50 == {(stem, S // 2, S // 2, 3, 2, 1): 1,
+                  (stem * S // 4, S // 2, 1, 3, 2, 1): 1},
+          f"unexpected r50 pool launches per step: {r50}")
+    print(f"[pool-r50] {sum(r50.values())} pool1d_bwd launches per r50 "
+          f"backward: {sorted(r50)}", flush=True)
+    tot["r50"] = measure_pool(r50, dev, gen, "pool-r50", exact_f32=True)
     torch.cuda.empty_cache()
     return tot
 
@@ -420,10 +474,10 @@ def make_data(work):
     return data_root
 
 
-def full_width(model, data_root, **kw):
+def full_width(model, data_root, net="s3d", **kw):
     from coclr_tpu_torch.config import PretrainConfig
 
-    return PretrainConfig(net="s3d", model=model, seq_len=T, img_dim=S,
+    return PretrainConfig(net=net, model=model, seq_len=T, img_dim=S,
                           batch_size=B, moco_k=K, moco_dim=DIM, epochs=1,
                           workers=8, print_freq=1, compute_dtype="bfloat16",
                           data_root=data_root, prefix="smoke", **kw)
@@ -480,8 +534,6 @@ def phase_slice(dev, work, data_root):
     import torch
     from coclr_tpu_torch.data import native
     from coclr_tpu_torch.models.moco import MoCo
-    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
-    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
     from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   load_reference_state_dict)
 
@@ -507,8 +559,22 @@ def phase_slice(dev, work, data_root):
           f"read back strictly ({len(ckpt['state_dict'])} tensors)", flush=True)
     del back
 
-    # the same step on a device-resident batch: the step without the loader
-    model = MoCo("s3d", DIM, K, torch.bfloat16).to(dev).train()
+    dev_ms, step_kernels, _, _ = infonce_device_step(dev, cfg, "slice")
+    return {"counts": counts, "per_step": per_step, "ckpt": ckpt_path,
+            "in_step": step_kernels, "dev_ms": dev_ms}
+
+
+def infonce_device_step(dev, cfg, tag, profile=True):
+    """The InfoNCE step of cfg.net on a device-resident batch (the step
+    without the loader): launches of one step, the median of 5 timed steps,
+    peak device memory, and a profiler window over 3 steps."""
+    import torch
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+
+    model = MoCo(cfg.net, DIM, K, torch.bfloat16).to(dev).train()
     opt = make_optimizer(cfg, model.encoder_q.parameters())
     pre = make_pretrain_preprocess(cfg)
     gen = torch.Generator(dev).manual_seed(0)
@@ -517,12 +583,18 @@ def phase_slice(dev, work, data_root):
              "aug_base": torch.randint(0, 2, (B, 2), dtype=torch.uint8,
                                        device=dev, generator=gen)}
     step = lambda: pretrain_step(model, opt, pre(batch, gen), 1e-3, cfg)
-    dev_ms = time_steps(step, "slice")
-    step_kernels = profile_steps(step, 3)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    step()
+    counts = {name: k.launches for name, k in build.KERNELS.items()}
+    dev_ms = time_steps(step, tag)
+    peak = torch.cuda.max_memory_allocated()
+    step_kernels = profile_steps(step, 3) if profile else None
+    print(f"[{tag}] one device-resident {cfg.net} step: launches {counts}; "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
     del model, opt, batch
     torch.cuda.empty_cache()
-    return {"counts": counts, "per_step": per_step, "ckpt": ckpt_path,
-            "in_step": step_kernels, "dev_ms": dev_ms}
+    return dev_ms, step_kernels, peak, counts
 
 
 def time_steps(step, tag, n=7, warmup=2, clips=2 * B):
@@ -636,15 +708,19 @@ def phase_coclr(dev, work, data_root, first):
             "peak": peak}
 
 
-def phase_coclr_device(dev):
+def phase_coclr_device(dev, net="s3d", expect=None, tag="coclr-open"):
+    """The CoCLR step of `net` (its sampler a `net` too) with a full queue on
+    a device-resident batch: launches of one step, timed, profiled."""
     import torch
     from coclr_tpu_torch.kernels import build
     from coclr_tpu_torch.models.moco import MoCo
     from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
     from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
 
-    cfg = full_width("coclr", "", dataset="ucf101-2stream-2clip", topk=5)
-    model = MoCo("s3d", DIM, K, torch.bfloat16, variant="coclr").to(dev).train()
+    expect = expect or {"jitter": 1, "pool1d_bwd": 37}
+    cfg = full_width("coclr", "", net=net, dataset="ucf101-2stream-2clip",
+                     topk=5)
+    model = MoCo(net, DIM, K, torch.bfloat16, variant="coclr").to(dev).train()
     gen = torch.Generator(dev).manual_seed(2)
     u8 = lambda: torch.randint(0, 256, (B, 2, T, S, S, 3), dtype=torch.uint8,
                                device=dev, generator=gen)
@@ -667,25 +743,80 @@ def phase_coclr_device(dev):
     build.reset_counts()
     metrics = step()
     counts = {name: k.launches for name, k in build.KERNELS.items()}
-    check(counts == {"jitter": 1, "pool1d_bwd": 37},
-          f"unexpected CoCLR launches with the gate open: {counts}")
+    check(counts == expect,
+          f"[{tag}] unexpected CoCLR launches with the gate open: {counts}")
     check(math.isfinite(float(metrics["loss"]))
-          and float(metrics["queue_is_full"]) == 1.0, "CoCLR full-queue step")
+          and float(metrics["queue_is_full"]) == 1.0,
+          f"[{tag}] CoCLR full-queue step")
     moved = sum(not torch.equal(a, b) for a, b in
                 zip(before, model.encoder_q.parameters()))
-    check(moved > 0, "encoder_q did not change with the gate open")
-    print(f"[coclr-open] one step: launches {counts}, loss "
+    check(moved > 0, f"[{tag}] encoder_q did not change with the gate open")
+    print(f"[{tag}] one {net} step: launches {counts}, loss "
           f"{float(metrics['loss']):.4f}, {moved} of {len(before)} encoder_q "
           f"tensors changed; {siblings} sibling pairs between batch and queue",
           flush=True)
-    dev_ms = time_steps(step, "coclr-open")
+    dev_ms = time_steps(step, tag)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[coclr-open] peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB", flush=True)
     step_kernels = profile_steps(step, 3)
     del model, opt, batch
     torch.cuda.empty_cache()
     return {"counts": counts, "dev_ms": dev_ms, "in_step": step_kernels,
             "peak": peak}
+
+
+def phase_resnet(dev, work, data_root):
+    """ResNet-2d3d at full width (seq_len 32, img_dim 128, batch 32, moco-k
+    2048, moco-dim 128, bfloat16), each path launching jitter once and
+    the stem pool's backward twice a step: the r50 InfoNCE loop (6 steps,
+    the epoch checkpoint read back strictly), the r50 and r3d50
+    device-resident InfoNCE steps (timed; r50 profiled), the r50 CoCLR step
+    with a full queue (an r50 sampler), the r50 finetune (3 loop steps,
+    validation, the device-resident step) and one RGB retrieval pass
+    (2048-wide features). Returns the paths' results."""
+    import torch
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  load_reference_state_dict)
+
+    expect = {"jitter": 1, "pool1d_bwd": 2}
+    paths = {}
+    cfg = full_width("infonce", data_root, net="r50")
+    _, info, per_step, counts, peak = run_counted(cfg, work, 6)
+    check(per_step == expect, f"[r50] unexpected launches per step: {per_step}")
+    step_ms = loop_line("r50", info, peak)
+    ckpt_path = os.path.join(info["model_path"], "epoch0.pth.tar")
+    ckpt = load_checkpoint(ckpt_path)
+    back = MoCo("r50", DIM, K, torch.bfloat16)
+    load_reference_state_dict(back, ckpt["state_dict"])
+    check(int(back.queue_ptr) == 6 * B % K
+          and ckpt["state_dict"]["encoder_q.2.weight"].shape[:2] == (2048, 2048),
+          "[r50] checkpoint read back wrong")
+    print(f"[r50] launches {counts} (per step {per_step}); checkpoint "
+          f"{os.path.relpath(ckpt_path, work)} read back strictly "
+          f"({len(ckpt['state_dict'])} tensors)", flush=True)
+    del back, ckpt
+    dev_ms, in_step, dev_peak, one = infonce_device_step(dev, cfg, "r50")
+    check(one == expect, f"[r50] unexpected launches in one step: {one}")
+    paths["r50_infonce"] = dict(counts=counts, per_step=per_step,
+                                step_ms=step_ms, loop_peak=peak, dev_ms=dev_ms,
+                                in_step=in_step, peak=dev_peak, ckpt=ckpt_path)
+
+    r3d = full_width("infonce", data_root, net="r3d50")
+    dev_ms, _, dev_peak, one = infonce_device_step(dev, r3d, "r3d50",
+                                                   profile=False)
+    check(one == expect, f"[r3d50] unexpected launches in one step: {one}")
+    paths["r3d50_infonce"] = dict(counts=one, dev_ms=dev_ms, peak=dev_peak)
+
+    paths["r50_coclr_open"] = phase_coclr_device(dev, "r50", expect,
+                                                 "r50-coclr-open")
+    paths["r50_finetune"] = phase_finetune(dev, work, data_root, ckpt_path,
+                                           net="r50", steps=3, pool_launches=2,
+                                           tag="r50-finetune")
+    paths["r50_retrieval"] = phase_retrieval(
+        work, data_root, ckpt_path, "ucf101", "feature_r50", net="r50",
+        width=2048)
+    return paths
 
 
 NUM_CLASS = 101  # UCF101's head, at the eval recipe's full width
@@ -699,16 +830,16 @@ def eval_argv(data_root, *extra):
             "--prefix", "smoke", "--print_freq", "1", *extra]
 
 
-def run_classifier(work, data_root, train_what, steps, pretrain):
-    """main_classifier's config and run_classifier_train for `steps` steps
-    (and validation), counted; returns (model, info, counts per step,
-    counts, peak)."""
+def run_classifier(work, data_root, train_what, steps, pretrain, *extra):
+    """main_classifier's config (eval_argv and `extra` flags) and
+    run_classifier_train for `steps` steps (and validation), counted;
+    returns (model, info, counts per step, counts, peak)."""
     from coclr_tpu_torch import main_classifier
     from coclr_tpu_torch.evalsuite.driver import run_classifier_train
 
     cfg = main_classifier.cfg_from_args(main_classifier.parse_args(eval_argv(
         data_root, "--train_what", train_what, "--epochs", "1", "--pretrain",
-        pretrain)))
+        pretrain, *extra)))
     (model, _, info), counts, _, peak = counted(
         lambda: run_classifier_train(cfg, max_steps=steps, device="cuda"), work)
     n = len(info["step_s"])
@@ -752,25 +883,26 @@ def classifier_device_step(dev, cfg, pretrain, tag, expect):
     return {"dev_ms": dev_ms, "in_step": in_step, "peak": peak}
 
 
-def phase_finetune(dev, work, data_root, pretrain):
-    """`--train_what ft` from the InfoNCE checkpoint: 12 loop steps and
-    validation, then the device-resident step."""
+def phase_finetune(dev, work, data_root, pretrain, net="s3d", steps=12,
+                   pool_launches=37, tag="finetune"):
+    """`--train_what ft` of `net` from the InfoNCE checkpoint: `steps` loop
+    steps and validation, then the device-resident step."""
     from coclr_tpu_torch.evalsuite import driver
     from coclr_tpu_torch.utils.checkpoint import load_checkpoint
 
+    expect = {"jitter": 1, "pool1d_bwd": pool_launches}
     model, cfg, info, per_step, counts, peak = run_classifier(
-        work, data_root, "ft", 12, pretrain)
-    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
-          f"unexpected finetune launches per step: {per_step}")
-    step_ms = loop_line("finetune", info, peak, clips=B)
+        work, data_root, "ft", steps, pretrain, "--net", net)
+    check(per_step == expect,
+          f"[{tag}] unexpected finetune launches per step: {per_step}")
+    step_ms = loop_line(tag, info, peak, clips=B)
     back = driver.build_model(cfg)
     back.load_state_dict(load_checkpoint(info["ckpt"])["state_dict"])
-    print(f"[finetune] launches {counts} (per step {per_step}); validation "
+    print(f"[{tag}] launches {counts} (per step {per_step}); validation "
           f"loss {info['val']['loss']:.4f}, top-1 {info['val']['top1']:.4f}; "
           f"checkpoint read back strictly", flush=True)
     del model, back
-    dev = classifier_device_step(dev, cfg, pretrain, "finetune",
-                                 {"jitter": 1, "pool1d_bwd": 37})
+    dev = classifier_device_step(dev, cfg, pretrain, tag, expect)
     return dict(dev, counts=counts, per_step=per_step, step_ms=step_ms,
                 loop_peak=peak)
 
@@ -807,28 +939,35 @@ def phase_probe(dev, work, data_root, pretrain):
                 loop_peak=peak, ckpt=info["ckpt"])
 
 
-def phase_retrieval(work, data_root, pretrain, dataset, dirname):
-    """`--test <pretrain> --retrieval` over the train and test splits, one
-    window a video (--max_windows 1), counted and timed."""
+def phase_retrieval(work, data_root, pretrain, dataset, dirname, net="s3d",
+                    width=1024):
+    """`--test <pretrain> --retrieval` of `net` over the train and test
+    splits, one window a video (--max_windows 1), counted and timed; the
+    cached features are `width` wide."""
     from coclr_tpu_torch import main_classifier
     from coclr_tpu_torch.evalsuite.retrieval import CLIP_BATCH, load_feature_cache
 
     argv = eval_argv(data_root, "--dataset", dataset, "--test", pretrain,
-                     "--retrieval", "--max_windows", "1", "--dirname", dirname)
+                     "--retrieval", "--max_windows", "1", "--dirname", dirname,
+                     "--net", net)
     recall, counts, sec, peak = counted(lambda: main_classifier.main(argv),
                                         work)
     cache = os.path.join(os.path.dirname(pretrain), dirname)
-    n = {split: len(load_feature_cache(cache, dataset, split)[1])
-         for split in ("train", "test")}
+    caches = {split: load_feature_cache(cache, dataset, split)
+              for split in ("train", "test")}
+    n = {split: len(c[1]) for split, c in caches.items()}
+    check(all(c[0].shape == (n[split], width) for split, c in caches.items()),
+          f"retrieval features are not {width} wide")
     batches = sum(-(-v // CLIP_BATCH) for v in n.values())
     check(counts == {"jitter": batches, "pool1d_bwd": 0},
           f"unexpected retrieval launches {counts} for {n} videos")
     check(set(recall) == {1, 5, 10, 20, 50}
           and all(0.0 <= r <= 1.0 for r in recall.values()), "recall")
     clips = sum(n.values())
-    print(f"[retrieval {dataset}] {clips} clips ({n}) in {sec:.2f} s = "
-          f"{clips / sec:.1f} clips/s (decode, jitter, S3D forward, cache "
-          f"write, recall); launches {counts}; peak device memory "
+    print(f"[retrieval {dataset} {net}] {clips} clips ({n}) in {sec:.2f} s = "
+          f"{clips / sec:.1f} clips/s (decode, jitter, {net} forward, "
+          f"{width}-wide cache write, recall); launches {counts}; peak device "
+          f"memory "
           f"{peak / 2**30:.2f} GiB; recall@k "
           f"{ {k: round(v, 4) for k, v in recall.items()} }", flush=True)
     return {"counts": counts, "clips_per_s": clips / sec, "cache": cache,
@@ -969,9 +1108,10 @@ def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
     """One rank of the ddp phase, in a process of its own on cuda:0, started
     the way torchrun starts it (RANK, WORLD_SIZE, LOCAL_RANK 0, MASTER_ADDR,
     MASTER_PORT): InfoNCE through run_pretrain at full width for one epoch
-    of 6 steps; with 2 ranks also the shuffle-BN gather timed, the
-    device-resident InfoNCE step timed, a CoCLR step with a full queue and
-    main_classifier --train_what ft for 3 steps and validation. Writes its
+    of 6 steps; with 2 ranks also the shuffle-BN gather and the alltoall
+    shard exchange timed, the device-resident InfoNCE step with each
+    shuffle timed, a CoCLR step with a full queue and main_classifier
+    --train_what ft for 3 steps and validation. Writes its
     results to out/rank<rank>-of-<world_size>.json; a failed check raises."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),
                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
@@ -981,7 +1121,8 @@ def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
     from coclr_tpu_torch import main_classifier
     from coclr_tpu_torch.evalsuite.driver import run_classifier_train
     from coclr_tpu_torch.kernels import build
-    from coclr_tpu_torch.models.moco import MoCo, draw_shuffle, l2_normalize
+    from coclr_tpu_torch.models.moco import (MoCo, draw_shuffle,
+                                             draw_shuffle_alltoall, l2_normalize)
     from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
     from coclr_tpu_torch.parallel import dist
     from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
@@ -1031,18 +1172,35 @@ def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
             times.append(time.perf_counter() - t0)
         res["gather_ms"] = statistics.median(times[1:]) * 1e3
         res["gather_bytes"] = x.numel() * x.element_size()
+        # one alltoall shard exchange of the same clips (--bn_shuffle
+        # alltoall): each rank keeps 1 / n of its rows and sends the rest
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_to_all_rows(x, world.group)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["alltoall_ms"] = statistics.median(times[1:]) * 1e3
         del x
 
-        # InfoNCE and CoCLR (full queue) steps on device-resident batches
+        # InfoNCE (gather and alltoall shuffles) and CoCLR (full queue)
+        # steps on device-resident batches
         gen = torch.Generator(dev).manual_seed(10 + rank)
-        perm = draw_shuffle(torch.Generator().manual_seed(0), B * world.size)
+        perms = {"gather": draw_shuffle(torch.Generator().manual_seed(0),
+                                        B * world.size),
+                 "alltoall": draw_shuffle_alltoall(
+                     torch.Generator().manual_seed(rank), B)}
         u8 = lambda: torch.randint(0, 256, (B, 2, T, S, S, 3), dtype=torch.uint8,
                                    device=dev, generator=gen)
         aug = lambda: torch.randint(0, 2, (B, 2), dtype=torch.uint8, device=dev,
                                     generator=gen)
-        for variant in ("infonce", "coclr"):
+        for variant, shuffle in (("infonce", "gather"), ("infonce", "alltoall"),
+                                 ("coclr", "gather")):
+            name = variant if shuffle == "gather" else f"{variant}_{shuffle}"
+            perm = perms[shuffle]
             cfg = full_width(variant, "", dataset="ucf101-2stream-2clip",
-                             topk=5)
+                             topk=5, bn_shuffle=shuffle)
             model = MoCo("s3d", DIM, K, torch.bfloat16,
                          variant=variant).to(dev).train()
             batch = {"seq": u8(), "aug_base": aug()}
@@ -1074,14 +1232,17 @@ def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
                                         ddp=ddp, perm=perm)
             else:
                 metrics = step()
-            one = {name: k.launches for name, k in build.KERNELS.items()}
+            one = {k: kern.launches for k, kern in build.KERNELS.items()}
             check(one == {"jitter": 1, "pool1d_bwd": 37},
-                  f"[ddp {tag}] {variant} step launches {one}")
+                  f"[ddp {tag}] {name} step launches {one}")
             check(math.isfinite(float(metrics["loss"])),
-                  f"[ddp {tag}] {variant} step loss")
-            check(same_on_all_ranks(list(model.encoder_q.parameters()), world),
-                  f"[ddp {tag}] encoder_q differs between ranks after the "
-                  f"{variant} step")
+                  f"[ddp {tag}] {name} step loss")
+            check(same_on_all_ranks(list(model.encoder_q.parameters())
+                                    + [model.queue], world),
+                  f"[ddp {tag}] encoder_q or the queue differs between ranks "
+                  f"after the {name} step")
+            if shuffle == "alltoall":
+                res[name] = dict(counts=one)
             if variant == "coclr":
                 check(float(metrics["queue_is_full"]) == 1.0,
                       f"[ddp {tag}] the CoCLR gate is not open")
@@ -1101,13 +1262,14 @@ def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
                 t0 = time.perf_counter()
                 float(step()["loss"])
                 ms.append((time.perf_counter() - t0) * 1e3)
-            res[f"{variant}_dev_ms"] = statistics.median(ms[1:])
-            res[f"{variant}_dev_peak"] = torch.cuda.max_memory_allocated()
-            print(f"[ddp {tag}] {variant} step on a device-resident batch: "
-                  f"launches {one}, loss {float(metrics['loss']):.4f}, median "
-                  f"{res[f'{variant}_dev_ms']:.1f} ms, peak "
-                  f"{res[f'{variant}_dev_peak'] / 2**30:.2f} GiB; encoder_q "
-                  f"equal on every rank", force=True, flush=True)
+            res[f"{name}_dev_ms"] = statistics.median(ms[1:])
+            res[f"{name}_dev_peak"] = torch.cuda.max_memory_allocated()
+            print(f"[ddp {tag}] {variant} step ({shuffle} shuffle) on a "
+                  f"device-resident batch: launches {one}, loss "
+                  f"{float(metrics['loss']):.4f}, median "
+                  f"{res[f'{name}_dev_ms']:.1f} ms, peak "
+                  f"{res[f'{name}_dev_peak'] / 2**30:.2f} GiB; encoder_q and "
+                  f"the queue equal on every rank", force=True, flush=True)
             del model, opt, ddp, batch
             torch.cuda.empty_cache()
 
@@ -1195,14 +1357,21 @@ def phase_ddp(work, data_root, pretrained, card):
             paths["ddp_gloo_2rank_finetune"] = {
                 "counts": add("finetune"),
                 "per_step": ranks[0]["finetune"]["per_step"]}
+            paths["ddp_gloo_2rank_alltoall"] = {
+                "counts": add("infonce_alltoall"),
+                "per_step": ranks[0]["infonce_alltoall"]["counts"]}
             g = ranks[0]["gather_bytes"]
             print(f"[ddp] 2 ranks sharing one card ({card}) over gloo (not a "
                   f"multi-GPU throughput): one shuffle-BN gather of {g} B a rank "
-                  f"{[round(r['gather_ms'], 2) for r in ranks]} ms; "
+                  f"{[round(r['gather_ms'], 2) for r in ranks]} ms, one "
+                  f"alltoall exchange of the same clips (half of them sent) "
+                  f"{[round(r['alltoall_ms'], 2) for r in ranks]} ms; "
                   f"device-resident steps per rank: InfoNCE "
                   f"{[round(r['infonce_dev_ms'], 1) for r in ranks]} ms "
                   f"(peak {[round(r['infonce_dev_peak'] / 2**30, 2) for r in ranks]}"
-                  f" GiB), CoCLR full queue "
+                  f" GiB), InfoNCE with the alltoall shuffle "
+                  f"{[round(r['infonce_alltoall_dev_ms'], 1) for r in ranks]} "
+                  f"ms, CoCLR full queue "
                   f"{[round(r['coclr_dev_ms'], 1) for r in ranks]} ms; "
                   f"finetune loop step "
                   f"{[round(r['finetune']['step_ms'], 1) for r in ranks]} ms",
@@ -1316,13 +1485,18 @@ def main():
                      paths["ncrop_flow"]["json"], paths["retrieval"]["cache"],
                      paths["retrieval_flow"]["cache"])
         paths["coclr_open"] = phase_coclr_device(dev)
+        t0 = time.time()
+        paths.update(phase_resnet(dev, work, data_root))
+        print(f"[resnet] phase took {time.time() - t0:.1f} s", flush=True)
         paths.update(phase_ddp(work, data_root, pretrained, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     trained = ("infonce", "ubernce", "coclr_gated", "coclr_open", "finetune",
-               "probe", "ddp_nccl_1rank", "ddp_gloo_2rank",
-               "ddp_gloo_2rank_coclr_open", "ddp_gloo_2rank_finetune")
+               "probe", "r50_infonce", "r3d50_infonce", "r50_coclr_open",
+               "r50_finetune", "ddp_nccl_1rank", "ddp_gloo_2rank",
+               "ddp_gloo_2rank_alltoall", "ddp_gloo_2rank_coclr_open",
+               "ddp_gloo_2rank_finetune")
 
     def launches(name):
         return {"launches": sum(p["counts"][name] for p in paths.values()),
@@ -1333,9 +1507,11 @@ def main():
                                       for k in trained},
                 "ms_in_step": {k: paths[k]["in_step"][name]
                                for k in ("infonce", "coclr_open", "finetune",
-                                         "probe")}}
+                                         "probe", "r50_infonce",
+                                         "r50_coclr_open", "r50_finetune")}}
 
     j2, j4 = jit[2048], jit[4096]
+    r50 = pool["r50"]
     kernels = [
         dict(name="jitter_normalize", route="cuda",
              source="coclr_tpu_torch/csrc/jitter.cu",
@@ -1367,7 +1543,13 @@ def main():
              plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
              bound_by=pool["bound_by"], library_ms=pool["library_ms"],
              library=pool["library"],
-             shape="sum over the 37 launches of one full-width S3D step, bfloat16"),
+             shape="sum over the 37 launches of one full-width S3D step, bfloat16",
+             r50_launch=dict(
+                 shape="sum over the 2 launches of one full-width r50 / r3d50 "
+                       "step (the stem pool's H and W axes), bfloat16",
+                 **{k: r50[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "library", "rows")})),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from coclr_tpu_torch.backbones.resnet2d3d import ResNet2d3d, r2d3d50, r3d50
 from coclr_tpu_torch.backbones.s3d import S3D, BasicConv3d
 
-__all__ = ["select_backbone", "S3D", "TinyBackbone"]
+__all__ = ["select_backbone", "S3D", "ResNet2d3d", "r2d3d50", "r3d50",
+           "TinyBackbone"]
 
 
 class TinyBackbone(nn.Module):
@@ -30,16 +32,23 @@ class TinyBackbone(nn.Module):
 
 def select_backbone(network: str, first_channel: int = 3,
                     dtype=torch.bfloat16) -> Tuple[nn.Module, dict]:
-    """Return (module, {'feature_size': int}) like the reference registry.
-    ResNet-2d3d (r50, r3d50) is not ported yet."""
+    """Return (module, {'feature_size': int}) like the reference registry:
+    s3d and s3dg (1024 features), r50 and r3d50 (ResNet-2d3d, 2048) and
+    tiny (32)."""
     param = {"feature_size": 1024}
     if network == "s3d":
         model = S3D(input_channel=first_channel, gating=False, dtype=dtype)
     elif network == "s3dg":
         model = S3D(input_channel=first_channel, gating=True, dtype=dtype)
+    elif network == "r50":
+        param["feature_size"] = 2048
+        model = r2d3d50(input_channel=first_channel, dtype=dtype)
+    elif network == "r3d50":
+        param["feature_size"] = 2048
+        model = r3d50(input_channel=first_channel, dtype=dtype)
     elif network == "tiny":
         param["feature_size"] = 32
         model = TinyBackbone(input_channel=first_channel, dtype=dtype)
     else:
-        raise ValueError(f"unknown or not yet ported backbone: {network!r}")
+        raise ValueError(f"unknown backbone: {network!r}")
     return model, param

@@ -54,7 +54,7 @@ class PretrainConfig:
     worker_mode: str = "thread"
 
     # data parallelism across ranks (parallel/dist.py)
-    bn_shuffle: str = "gather"          # gather | none (alltoall: not ported)
+    bn_shuffle: str = "gather"          # gather | alltoall | none
     dist_backend: str = "nccl"          # nccl | gloo (the CPU is always gloo)
     num_devices: int = 0                # 0, or the launcher's WORLD_SIZE
 

@@ -9,7 +9,7 @@ main_nce.py flags plus the JAX package's knobs). `--device` picks the
 device: cuda (the default; cuda:LOCAL_RANK under torchrun) or cpu. Under a
 launcher these are acted on: `--batch_size` (per card: the global batch is
 batch_size x ranks), `--dist-backend` (nccl, or gloo when asked; the CPU is
-always gloo), `--bn_shuffle` (gather or none; alltoall raises) and
+always gloo), `--bn_shuffle` (gather, alltoall or none) and
 `--num_devices` (when set, it must equal WORLD_SIZE). Accepted and ignored:
 `--gpu`, `--world-size`, `--rank`, `--dist-url`,
 `--multiprocessing-distributed`, `--local_rank` (torchrun's environment

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from coclr_tpu_torch.backbones import select_backbone
+from coclr_tpu_torch.backbones import ResNet2d3d, select_backbone
 
 
 class ProjectionEncoder(nn.Sequential):
@@ -42,8 +42,8 @@ class ProjectionEncoder(nn.Sequential):
 
 def init_params_(encoder: ProjectionEncoder, gen: torch.Generator) -> None:
     """Draw every parameter from `gen`, with the reference's initializers:
-    backbone convs Normal(0, 0.01), BN weight 1 / bias 0, and torch's default
-    U(+-1/sqrt(fan_in)) for the head convs and the gating Linear layers."""
+    the backbone's (init_backbone_), and torch's default U(+-1/sqrt(fan_in))
+    for the head convs."""
     with torch.no_grad():
         init_backbone_(encoder[0], gen)
         _torch_default_init(encoder[2], gen)
@@ -52,11 +52,16 @@ def init_params_(encoder: ProjectionEncoder, gen: torch.Generator) -> None:
 
 def init_backbone_(backbone: nn.Module, gen: torch.Generator) -> None:
     """The reference's backbone initializers, drawn from `gen`: convs
-    Normal(0, 0.01), BN weight 1 / bias 0, gating Linear layers torch's
-    default."""
+    Normal(0, 0.01) (S3D, tiny) or, for ResNet-2d3d, kaiming normal with
+    fan_out (std sqrt(2 / (out channels x kernel volume))); BN weight 1 /
+    bias 0; S3D-G's gating Linear layers torch's default."""
+    kaiming = isinstance(backbone, ResNet2d3d)
     with torch.no_grad():
         for mod in backbone.modules():
-            if isinstance(mod, nn.Conv3d):
+            if isinstance(mod, nn.Conv3d) and kaiming:
+                nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                                        nonlinearity="relu", generator=gen)
+            elif isinstance(mod, nn.Conv3d):
                 nn.init.normal_(mod.weight, 0.0, 0.01, generator=gen)
             elif isinstance(mod, nn.Linear):
                 _torch_default_init(mod, gen)

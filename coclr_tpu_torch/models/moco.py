@@ -11,12 +11,18 @@ queues are stored [K, dim] so the enqueue writes rows; the reference's
 enqueue indexes with it, so a step never waits for the card.
 
 Across ranks (parallel/dist.py) the key batch is shuffled before the key
-encode and unshuffled after it (`batch_shuffle`, `batch_unshuffle`: the
-`gather` form of coclr_tpu/models/moco.py), so that each rank's BatchNorm
-statistics cover keys drawn from every rank, and the enqueue writes the
-keys of all ranks in rank order. In one process the shuffle is skipped: a
-permutation within the one BN batch changes neither the BN statistics nor
-the unshuffled keys (coclr_tpu/models/moco.py encode_keys).
+encode and unshuffled after it, so that each rank's BatchNorm statistics
+cover keys drawn from every rank, and the enqueue writes the keys of all
+ranks in rank order. Two forms, as in coclr_tpu/models/moco.py:
+`--bn_shuffle gather` (`batch_shuffle` / `batch_unshuffle`: all-gather the
+global batch, take this rank's slice of one shared permutation) and
+`alltoall` (`batch_shuffle_alltoall` / `batch_unshuffle_alltoall`: a local
+permutation, an all-to-all of equal shards, a second local permutation,
+so each row crosses the wire once). In one process the shuffle is skipped:
+a permutation within the one BN batch changes neither the BN statistics
+nor the unshuffled keys (coclr_tpu/models/moco.py encode_keys); alltoall
+with a batch that the ranks do not divide falls back to gather
+(`shuffle_mode`).
 """
 
 from __future__ import annotations
@@ -27,11 +33,11 @@ import torch
 from torch import nn
 
 from coclr_tpu_torch.models.encoder import ProjectionEncoder, init_params_
-from coclr_tpu_torch.parallel.dist import gather_rows, rank_of
+from coclr_tpu_torch.parallel.dist import all_to_all_rows, gather_rows, rank_of
 
 NEG_INF = -1e30
 VARIANTS = ("infonce", "ubernce", "coclr")
-BN_SHUFFLES = ("gather", "none")
+BN_SHUFFLES = ("gather", "alltoall", "none")
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
@@ -141,20 +147,32 @@ def coclr_mask(kf, k_vsource, queue_second, queue_vname, queue_label,
 
 def draw_shuffle(gen: torch.Generator, n: int) -> torch.Tensor:
     """The permutation of the global key batch of n rows that every rank
-    shares: a draw on the host from `gen`, which each rank seeds alike
-    (the part of the JAX step's shared rng_shuffle)."""
+    shares (--bn_shuffle gather): a draw on the host from `gen`, which each
+    rank seeds alike (the part of the JAX step's shared rng_shuffle)."""
     return torch.randperm(n, generator=gen)
 
 
-def check_bn_shuffle(mode: str, world_size: int) -> None:
-    """Raise on a --bn_shuffle the port does not run across ranks."""
-    if mode == "alltoall" and world_size > 1:
-        raise NotImplementedError(
-            "--bn_shuffle alltoall (coclr_tpu/models/moco.py "
-            "batch_shuffle_alltoall) is not ported yet (ROADMAP.md, Queue 1); "
-            "use gather or none")
-    if mode not in BN_SHUFFLES + ("alltoall",):
+def draw_shuffle_alltoall(gen: torch.Generator, b: int):
+    """This rank's two local permutations of its b key rows (--bn_shuffle
+    alltoall): draws on the host from `gen`, which each rank seeds with its
+    own rank (the JAX step's fold_in(r_local, rank) and fold_in(r_cross,
+    rank))."""
+    return torch.randperm(b, generator=gen), torch.randperm(b, generator=gen)
+
+
+def shuffle_mode(mode: str, b: int, ranks: int) -> str:
+    """The form the key shuffle takes for --bn_shuffle `mode` with b rows a
+    rank over `ranks` ranks, as coclr_tpu/models/moco.py encode_keys
+    decides it: none in one process; gather for alltoall when the ranks do
+    not divide b (its shards are b / ranks rows). Raises on an unknown
+    mode."""
+    if mode not in BN_SHUFFLES:
         raise ValueError(f"unknown --bn_shuffle {mode!r}")
+    if ranks == 1:
+        return "none"
+    if mode == "alltoall" and b % ranks:
+        return "gather"
+    return mode
 
 
 def batch_shuffle(x, perm, group):
@@ -174,6 +192,25 @@ def batch_unshuffle(k, inv, group):
     b = k.shape[0]
     r = rank_of(group)
     return gather_rows(k, group).index_select(0, inv[r * b:(r + 1) * b])
+
+
+def batch_shuffle_alltoall(x, perms, group):
+    """This rank's BN batch under the alltoall shuffle: its rows permuted by
+    perms[0], split into one shard of b / n rows per rank and exchanged
+    (shard j to rank j; rank j's shard for this rank lands j-th), then
+    permuted by perms[1]. Every rank's batch so holds b / n rows of every
+    rank. b % n == 0."""
+    perm, perm2 = (p.to(x.device, non_blocking=True) for p in perms)
+    x = all_to_all_rows(x.index_select(0, perm), group)
+    return x.index_select(0, perm2)
+
+
+def batch_unshuffle_alltoall(k, perms, group):
+    """The inverse of batch_shuffle_alltoall on the encoded keys: the keys
+    of this rank's own rows, in their order."""
+    perm, perm2 = (p.to(k.device, non_blocking=True) for p in perms)
+    k = all_to_all_rows(k.index_select(0, torch.argsort(perm2)), group)
+    return k.index_select(0, torch.argsort(perm))
 
 
 @torch.no_grad()

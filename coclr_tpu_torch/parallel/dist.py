@@ -16,7 +16,8 @@ exactly as before.
   preemption flag), so that agreeing on them never waits for the card.
 
 The collectives the steps use: `gather_rows` (the rank-ordered, tiled
-all_gather of coclr_tpu/models/moco.py::_gather), `all_mean`, `all_sum`,
+all_gather of coclr_tpu/models/moco.py::_gather), `all_to_all_rows` (the
+alltoall shuffle's shard exchange), `all_mean`, `all_sum`,
 `from_primary` (rank 0's model, optimizer state and loop position on
 every rank), `agree_flag`, `setup_print` and `wrap`
 (DistributedDataParallel:
@@ -144,6 +145,18 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
+
+
+def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, ...] on every rank, b % size == 0: rows [j * b / size, (j + 1) *
+    b / size) go to rank j, and the result holds the shards received,
+    rank 0's first (the JAX package's untiled all_to_all over the data
+    axis)."""
+    if size_of(group) == 1:
+        return x
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
 
 
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:

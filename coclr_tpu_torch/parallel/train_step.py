@@ -21,9 +21,9 @@ so the step never waits for the card:
 As one rank of several (the JAX step under shard_map over the `data`
 axis), the step takes encoder_q wrapped in DistributedDataParallel
 (parallel/dist.py wrap), whose backward averages the gradients over the
-ranks (the JAX step's pmean), and the shared permutation of the global key
-batch: the keys are shuffled across ranks around the key encode
-(--bn_shuffle gather; none skips it), the metrics are averaged over the
+ranks (the JAX step's pmean), and the permutations of the key shuffle:
+the keys are shuffled across ranks around the key encode (--bn_shuffle
+gather or alltoall; none skips it), the metrics are averaged over the
 ranks, and the enqueue writes the keys, labels, sampler keys and video
 names of every rank in rank order. CoCLR's masks still come from this
 rank's rows against the queues as they were before the enqueue, and
@@ -57,12 +57,16 @@ def _encode(encoder, x):
 
 def _encode_keys(model, x2, group, perm, bn_shuffle):
     """The key encoder's l2-normalised keys of x2, shuffled across the ranks
-    of `group` around the encode (bn_shuffle 'gather', with 2 or more
-    ranks)."""
-    if size_of(group) == 1 or bn_shuffle == "none":
+    of `group` around the encode in the form moco.shuffle_mode gives."""
+    mode = moco.shuffle_mode(bn_shuffle, x2.shape[0], size_of(group))
+    if mode == "none":
         return _encode(model.encoder_k, x2)
     if perm is None:
-        raise ValueError("the key batch shuffle needs the shared permutation")
+        raise ValueError("the key batch shuffle needs its permutations")
+    if mode == "alltoall":
+        x2 = moco.batch_shuffle_alltoall(x2, perm, group)
+        return moco.batch_unshuffle_alltoall(_encode(model.encoder_k, x2),
+                                             perm, group)
     x2, inv = moco.batch_shuffle(x2, perm, group)
     return moco.batch_unshuffle(_encode(model.encoder_k, x2), inv, group)
 
@@ -78,9 +82,10 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
     'queue_is_full' for CoCLR), averaged over the ranks.
 
     `ddp`: model.encoder_q in DistributedDataParallel over the ranks'
-    process group, or None for one process; `perm`: the shared
-    permutation of the global key batch (moco.draw_shuffle), which the
-    shuffle needs with 2 or more ranks."""
+    process group, or None for one process; `perm`: what the key shuffle
+    needs with 2 or more ranks: the shared permutation of the global key
+    batch (moco.draw_shuffle) for gather, this rank's pair of local
+    permutations (moco.draw_shuffle_alltoall) for alltoall."""
     variant = model.variant
     group = None if ddp is None else ddp.process_group
     if not isinstance(batch, dict):

@@ -10,8 +10,9 @@ Under a distributed launcher (parallel/dist.py) each rank takes
 `batch_size` clips of a global batch of batch_size x ranks: the loader
 gives rank r its block of every global batch, the step averages gradients
 and metrics over the ranks and enqueues the global batch, the preprocess
-and CoCLR's self-drop draw per rank, and the key shuffle's permutation is
-drawn alike on every rank. Only rank 0 reads the init files (the model,
+and CoCLR's self-drop draw per rank, and the key shuffle's permutations:
+gather's global one drawn alike on every rank, alltoall's local pair per
+rank. Only rank 0 reads the init files (the model,
 the optimizer state and the loop position are then broadcast from it) and
 writes checkpoints and logs; the preemption flag is agreed once per step.
 """
@@ -27,7 +28,8 @@ import torch
 from coclr_tpu_torch.config import PretrainConfig
 from coclr_tpu_torch.data import datasets as D
 from coclr_tpu_torch.data.loader import Loader
-from coclr_tpu_torch.models.moco import MoCo, check_bn_shuffle, draw_shuffle
+from coclr_tpu_torch.models.moco import (MoCo, draw_shuffle,
+                                         draw_shuffle_alltoall, shuffle_mode)
 from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
 from coclr_tpu_torch.parallel import dist
 from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
@@ -223,7 +225,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices)
     rank, ranks = (world.rank, world.size) if world else (0, 1)
     primary = rank == 0
-    check_bn_shuffle(cfg.bn_shuffle, ranks)
+    shuffle = shuffle_mode(cfg.bn_shuffle, cfg.batch_size, ranks)
     is_coclr = cfg.model == "coclr"
     global_batch = cfg.batch_size * ranks
     if cfg.moco_k % global_batch:
@@ -243,7 +245,6 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     start_epoch, iteration, best_acc = init_model(model, optimizer, cfg, world)
     fill = QueueFill(model) if is_coclr else None
     ddp = dist.wrap(model.encoder_q, world) if world else None
-    shuffle = ranks > 1 and cfg.bn_shuffle == "gather"
 
     if loader is None:
         if dataset is None:
@@ -260,7 +261,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
         plotter = logger = NullSink()
     gen = torch.Generator(device)
     self_gen = torch.Generator()  # CoCLR's self-drop draw, on the host
-    perm_gen = torch.Generator()  # the shared key permutation, on the host
+    perm_gen = torch.Generator()  # the key shuffle's permutations, on the host
 
     train_acc, train_loss = 0.0, float("nan")
     step_s = []
@@ -299,10 +300,14 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                 self_gen.manual_seed(seed ^ 0x5EED)
                 drop_self = bool(torch.rand((), generator=self_gen) < 0.9)
                 perm = None
-                if shuffle:
+                if shuffle == "gather":
                     perm_gen.manual_seed(step_seed(cfg.seed, iteration)
                                          + SHUFFLE_SEED)
                     perm = draw_shuffle(perm_gen, global_batch)
+                elif shuffle == "alltoall":
+                    perm_gen.manual_seed(step_seed(cfg.seed, iteration, rank)
+                                         + SHUFFLE_SEED)
+                    perm = draw_shuffle_alltoall(perm_gen, cfg.batch_size)
                 metrics = pretrain_step(
                     model, optimizer, preprocess(batch, gen), lr, cfg,
                     drop_self=drop_self, update=fill is None or fill.full,

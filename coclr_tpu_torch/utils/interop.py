@@ -12,6 +12,8 @@ coclr_tpu/utils/torch_interop.py (torch_from_flax_*):
   scale / bias                    -> weight / bias
   batch_stats mean / var          -> running_mean / running_var
   flax module path branchN_j      -> branchN.j (branch0 -> branch0.0)
+                  layerN_i        -> layerN.i (ResNet-2d3d)
+                  downsample_conv -> downsample.0, downsample_bn -> downsample.1
 
 S3D members are emitted twice, under their own name and under the
 reference's duplicate `blockN.i` registration. The queues stay [K, dim], the
@@ -56,14 +58,19 @@ def flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]
     return out
 
 
+DOWNSAMPLE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+
+
 def _module_path(path) -> str:
     parts = []
     for p in path:
-        m = re.fullmatch(r"(branch\d)_(\d)", p)
+        m = re.fullmatch(r"(branch\d|layer\d)_(\d+)", p)
         if p == "branch0":
             parts += ["branch0", "0"]
         elif m:
             parts += [m.group(1), m.group(2)]
+        elif p in DOWNSAMPLE:
+            parts.append(DOWNSAMPLE[p])
         else:
             parts.append(p)
     return ".".join(parts)

@@ -7,6 +7,7 @@ without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import itertools
 import math
 
@@ -458,6 +459,152 @@ def test_two_gloo_ranks_on_card_match_two_ranks_on_cpu(dev, tmp_path):
     assert math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
     assert float(np.abs(s0["queue"] - c0["queue"]).max()) <= 1e-4
     assert int(s0["queue_ptr"][0]) == 2 * B
+    for key, val in c0.items():
+        if key.startswith("encoder_q.") and "running" not in key \
+                and "num_batches" not in key:
+            assert float(np.abs(s0[key] - val).max()) <= 2 * lr + 1e-6, key
+
+
+def condition_resnet_(backbone, seed=0):
+    """Well-conditioned random ResNet-2d3d weights in place: He-scaled convs,
+    BN affine and running statistics perturbed, and the residual branch's
+    bn3 scaled down so that 16 residual sums stay O(1) and no channel of
+    the train-mode BatchNorm is near constant over a small batch."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in backbone.named_modules():
+            if isinstance(mod, torch.nn.Conv3d):
+                mod.weight.normal_(0.0, (2.0 / mod.weight[0].numel()) ** 0.5,
+                                   generator=g)
+            elif isinstance(mod, torch.nn.BatchNorm3d):
+                lo, hi = (0.1, 0.3) if name.endswith("bn3") else (0.8, 1.2)
+                mod.weight.uniform_(lo, hi, generator=g)
+                mod.bias.uniform_(-0.1, 0.1, generator=g)
+                mod.running_mean.uniform_(-0.1, 0.1, generator=g)
+                mod.running_var.uniform_(0.5, 1.5, generator=g)
+    return backbone
+
+
+@contextlib.contextmanager
+def _deterministic_float32():
+    """TF32 off and cuDNN deterministic inside the block."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["r50", "r3d50"])
+def test_resnet_on_card_matches_cpu(dev, net):
+    """ResNet-2d3d at full depth, B = 2, T = 8, S = 32, float32 with TF32
+    off: the eval-mode forward on the card (cuDNN) against the CPU to 1e-4
+    of the largest output, and the input gradient of sum(sin(y)) (the
+    stem pool's backward: two pool kernel launches, H then W) to 1e-3 of
+    the largest; a bfloat16 forward and backward on the card stays finite
+    and launches the kernel twice as well."""
+    from coclr_tpu_torch.backbones import select_backbone
+
+    src = condition_resnet_(select_backbone(net, dtype=torch.float32)[0]).eval()
+    x = torch.rand(2, 3, 8, 32, 32, generator=torch.Generator().manual_seed(1))
+    out = {}
+    with _deterministic_float32():
+        for d in ("cpu", dev):
+            model = src.to(d)
+            xd = x.detach().to(d).requires_grad_(True)  # x stays a plain input
+            before = pool.KERNEL.launches
+            y = model(xd)
+            torch.sin(y).sum().backward()
+            out[str(d)] = (y.detach().cpu(), xd.grad.cpu(),
+                           pool.KERNEL.launches - before)
+    (y0, g0, n0), (y1, g1, n1) = out["cpu"], out[str(dev)]
+    assert (n0, n1) == (0, 2)
+    assert float((y1 - y0).abs().max()) <= 1e-4 * float(y0.abs().max())
+    assert float((g1 - g0).abs().max()) <= 1e-3 * float(g0.abs().max())
+
+    bf16 = select_backbone(net, dtype=torch.bfloat16)[0]
+    bf16.load_state_dict(src.state_dict())
+    bf16.to(dev).train()
+    xd = x.to(dev).requires_grad_(True)
+    before = pool.KERNEL.launches
+    bf16(xd).float().sum().backward()
+    assert pool.KERNEL.launches - before == 2
+    assert bool(torch.isfinite(xd.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pool_kernel_at_the_r50_stem_shapes(dev, dtype):
+    """The two launches of the r50 / r3d50 stem pool's backward at the full
+    width of one step (batch 32, seq_len 32, img_dim 128: the stem gives
+    [32, 64, 16, 64, 64]): the H pool on [32768, 64, 64] and the W pool on
+    [1048576, 64, 1], window 3, stride 2, pad 1, post-ReLU zero ties and
+    integer-valued g, bit for bit against the plain version."""
+    gen = torch.Generator(dev).manual_seed(7)
+    for p, n, q in ((32768, 64, 64), (1048576, 64, 1)):
+        x = torch.relu(torch.randn(p, n, q, generator=gen, device=dev)
+                       - 0.5).to(dtype)
+        out = pool.pool1d_fwd(x, 1, 3, 2, 1)
+        g = torch.randint(-4, 5, out.shape, generator=gen, device=dev).to(dtype)
+        assert torch.equal(pool.pool1d_bwd(x, out, g, 3, 2, 1),
+                           pool.pool1d_bwd_plain(x, out, g, 3, 2, 1))
+        del x, out, g
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_alltoall_two_gloo_ranks_on_card_match_cpu(dev, tmp_path):
+    """One r50 InfoNCE step with --bn_shuffle alltoall as two gloo ranks
+    sharing the card (all_to_all_single over gloo on CUDA tensors; each
+    rank launches the pool kernel twice), against the same two ranks on
+    the CPU, float32 with TF32 off, 4 clips a rank, each rank's pair of
+    local permutations given: the ranks' parameters and queues are
+    bit-identical on the card, and against the CPU the loss within rtol
+    1e-4, the queue rows within 1e-4 and each encoder_q element within
+    2 lr (Adam's first step moves it by at most lr)."""
+    from coclr_tpu_torch.models.moco import MoCo, l2_normalize
+    from torch_ddp_ranks import RankPool
+
+    lr, K, B, T, S, D = 1e-3, 16, 4, 8, 32, 8
+    model = MoCo("r50", D, K, torch.float32)
+    condition_resnet_(model.encoder_q[0])
+    model.encoder_k.load_state_dict(model.encoder_q.state_dict())
+    gen = torch.Generator().manual_seed(6)
+    model.eval()
+    with torch.no_grad():  # negatives near the positive: the loss moves
+        model.queue.copy_(l2_normalize(model.encoder_k(
+            torch.randn(K, 3, T, S, S, generator=gen))))
+    sd = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    seq = torch.randn(2 * B, 2, T, S, S, 3, generator=gen)
+    pairs = [[torch.randperm(B, generator=gen).numpy() for _ in range(2)]
+             for _ in range(2)]
+    case = dict(variant="infonce", sd=sd, lr=lr,
+                cfg=dict(net="r50", moco_k=K, moco_dim=D, lr=lr,
+                         compute_dtype="float32", bn_shuffle="alltoall"),
+                batches=[{"seq": seq.numpy()}], perms=[pairs],
+                drops=[[True, True]])
+    ranks = RankPool(2, str(tmp_path))
+    try:  # the rank processes turn TF32 off themselves (prepare_run)
+        cpu = ranks.run("pretrain", dict(case, device="cpu"))
+        card = ranks.run("pretrain", dict(case, device=str(dev)))
+    finally:
+        ranks.close()
+    assert [r["launches"] for r in card] == [2, 2]
+    assert [r["launches"] for r in cpu] == [0, 0]
+    s0, s1, c0 = card[0]["states"][0], card[1]["states"][0], cpu[0]["states"][0]
+    for key, val in s0.items():
+        if "running" not in key and "num_batches" not in key:
+            assert np.array_equal(val, s1[key]), key
+    l_card, l_cpu = card[0]["metrics"][0]["loss"], cpu[0]["metrics"][0]["loss"]
+    assert math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert float(np.abs(s0["queue"] - c0["queue"]).max()) <= 1e-4
     for key, val in c0.items():
         if key.startswith("encoder_q.") and "running" not in key \
                 and "num_batches" not in key:

@@ -97,10 +97,25 @@ def _batch(rng, variant):
             "label": rng.randint(0, 3, 2 * B).astype(np.int32)}
 
 
-def _jax_draws(key):
-    """The JAX step's shared permutation and each device's self-drop."""
+def _alltoall_draws(r_shuffle, b):
+    """Each device's two local permutations in the JAX package's
+    batch_shuffle_alltoall (coclr_tpu/models/moco.py): permutation(
+    fold_in(r_local, i), b) and permutation(fold_in(r_cross, i), b)."""
+    r_local, r_cross = jax.random.split(r_shuffle)
+    return [tuple(np.asarray(jax.random.permutation(
+        jax.random.fold_in(r, i), b)).astype(np.int64)
+        for r in (r_local, r_cross)) for i in range(2)]
+
+
+def _jax_draws(key, bn_shuffle="gather"):
+    """The JAX step's key shuffle permutations (gather: the shared one;
+    alltoall: each device's pair) and each device's self-drop."""
     _, r_shuffle, r_self = jax.random.split(jax.random.fold_in(key, 0), 3)
-    perm = np.asarray(jax.random.permutation(r_shuffle, 2 * B)).astype(np.int64)
+    if bn_shuffle == "alltoall":
+        perm = _alltoall_draws(r_shuffle, B)
+    else:
+        perm = np.asarray(jax.random.permutation(r_shuffle, 2 * B)).astype(
+            np.int64)
     drops = [bool(jax.random.uniform(jax.random.fold_in(r_self, i)) < 0.9)
              for i in range(2)]
     return perm, drops
@@ -138,10 +153,11 @@ def _first_moments(opt_state, state):
 
 @pytest.mark.parametrize("variant,bn_shuffle", [
     ("infonce", "gather"), ("ubernce", "gather"), ("coclr", "gather"),
-    ("infonce", "none")])
+    ("infonce", "none"), ("infonce", "alltoall"), ("coclr", "alltoall")])
 def test_pretrain_step_two_ranks_matches_jax_mesh(ranks, variant, bn_shuffle):
-    """Two steps of `variant` on a global batch of 4 (2 per rank / device).
-    JAX's metrics are its pmean, its BatchNorm statistics device 0's (rank
+    """Two steps of `variant` on a global batch of 4 (2 per rank / device),
+    with the key shuffle `bn_shuffle` on JAX's draws (alltoall: each
+    device's pair of local permutations). JAX's metrics are its pmean, its BatchNorm statistics device 0's (rank
     0's); the queues hold the global batch in rank order. The gradient
     averaged over the ranks is held through Adam's first moment after the
     first step (1e-5; measured 5e-8 to 9e-7 of moments up to 1.5), and the
@@ -157,7 +173,7 @@ def test_pretrain_step_two_ranks_matches_jax_mesh(ranks, variant, bn_shuffle):
     for i in range(2):
         batch = _batch(rng, variant)
         key = jax.random.PRNGKey(20 + i)
-        perm, drop = _jax_draws(key)
+        perm, drop = _jax_draws(key, bn_shuffle)
         state, opt_state, jm = step(
             state, opt_state, {k: jnp.asarray(v.copy()) for k, v in batch.items()},
             key, jnp.float32(LR))
@@ -205,6 +221,55 @@ def test_pretrain_step_two_ranks_matches_jax_mesh(ranks, variant, bn_shuffle):
         np.testing.assert_array_equal(got0["queue_vname"][:4 * B], names)
         np.testing.assert_array_equal(got0["queue_vname"],
                                       np.asarray(state.queue_vname))
+
+
+def test_alltoall_shuffle_matches_jax_mesh_and_falls_back_to_gather(ranks):
+    """batch_shuffle_alltoall on two gloo ranks, 8 rows a rank, against the
+    JAX package's batch_shuffle_alltoall on its 2-device mesh under the same
+    draws (each device's pair from fold_in(rank)), for 3 keys: the shuffled
+    rows equal, exactly; the unshuffle restores every rank's rows exactly;
+    the global batch is a permutation of the rows, and every rank's BN batch
+    holds b / n = 4 rows of every rank (tests/test_alltoall.py's even mix).
+    With 3 rows a rank (2 does not divide 3) --bn_shuffle alltoall takes the
+    gather form, as the JAX package's encode_keys does: the keys equal the
+    gather form's bit for bit, under the same shared permutation."""
+    from coclr_tpu.parallel.mesh import mesh_axes, shard_map_fn
+    from jax.sharding import PartitionSpec as P
+    from coclr_tpu_torch.models.moco import shuffle_mode
+
+    b, n = 8, 2
+    mesh = make_mesh(n)
+    axis = mesh_axes(mesh)
+
+    def fn(x, rng):
+        shuffled, ctx = jmoco.batch_shuffle_alltoall(x, rng, axis)
+        return shuffled, jmoco.batch_unshuffle_alltoall(shuffled, ctx, axis)
+
+    f = jax.jit(shard_map_fn(fn, mesh, in_specs=(P(axis), P()),
+                             out_specs=(P(axis), P(axis))))
+    rows = np.arange(n * b, dtype=np.float32)[:, None]
+    _, _, _, kw, sd = _jax_moco("infonce", "alltoall")
+    keys_in = np.random.RandomState(9).randn(6, 3, T, S, S).astype(np.float32)
+    gather_perm = np.random.RandomState(10).permutation(6).astype(np.int64)
+    assert shuffle_mode("alltoall", 3, 2) == "gather"
+    assert shuffle_mode("alltoall", 4, 2) == "alltoall"
+    assert shuffle_mode("alltoall", 3, 1) == "none"
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        want, back = jax.device_get(f(jnp.asarray(rows), key))
+        np.testing.assert_array_equal(back, rows)
+        out = ranks.run("alltoall", dict(
+            rows=rows, perms=_alltoall_draws(key, b), sd=sd, cfg=kw,
+            keys_in=keys_in, gather_perm=gather_perm))
+        shuffled = np.concatenate([o["shuffled"] for o in out])[:, 0]
+        np.testing.assert_array_equal(shuffled, want[:, 0])
+        np.testing.assert_array_equal(np.sort(shuffled), np.arange(n * b))
+        for r, o in enumerate(out):
+            np.testing.assert_array_equal(o["restored"], rows[r * b:(r + 1) * b])
+            src = (o["shuffled"][:, 0] // b).astype(np.int64)
+            np.testing.assert_array_equal(np.bincount(src, minlength=n),
+                                          [b // n] * n)
+            assert np.array_equal(o["keys"]["alltoall"], o["keys"]["gather"])
 
 
 def test_world_one_group_equals_no_group(ranks):
@@ -363,16 +428,26 @@ def test_preemption_on_one_rank_stops_both_at_the_same_iteration(ranks,
 
 def test_alltoall_shuffle_and_multi_rank_test_raise(ranks, tmp_path,
                                                     monkeypatch):
-    """--bn_shuffle alltoall on two ranks raises NotImplementedError (on
-    both, before any step); --test under WORLD_SIZE 2 raises before it
-    reads anything; --num_devices other than the launch's world raises."""
+    """--bn_shuffle alltoall on two ranks runs run_pretrain (each rank draws
+    its own pair of local permutations a step): both ranks finish the 3
+    steps of the epoch with the same encoder_q and queue (sha256 digest);
+    an unknown --bn_shuffle raises ValueError on both before any step;
+    --test under WORLD_SIZE 2 raises before it reads anything;
+    --num_devices other than the launch's world raises."""
     cfg = dict(net="tiny", seq_len=T, img_dim=S, batch_size=B, moco_k=K,
                moco_dim=DIM, epochs=1, compute_dtype="float32",
-               bn_shuffle="alltoall")
-    out = ranks.run("run_pretrain", dict(cfg=cfg, workdir=str(tmp_path)))
+               bn_shuffle="alltoall", prefix="a2a")
+    batches = _steps_batches(np.random.RandomState(6), 3)
+    out = ranks.run("run_pretrain", dict(cfg=cfg, workdir=str(tmp_path),
+                                         batches=batches))
+    assert [o.get("raised") for o in out] == [None, None]
+    assert [len(o["step_s"]) for o in out] == [3, 3]
+    assert [o["ranks"] for o in out] == [2, 2]
+    assert out[0]["digest"] == out[1]["digest"]
+    out = ranks.run("run_pretrain", dict(cfg=dict(cfg, bn_shuffle="ring"),
+                                         workdir=str(tmp_path)))
     for o in out:
-        assert o["raised"] == "NotImplementedError"
-        assert "ROADMAP.md" in o["message"]
+        assert o["raised"] == "ValueError" and "bn_shuffle" in o["message"]
 
     from coclr_tpu_torch import main_classifier
 

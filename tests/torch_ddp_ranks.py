@@ -113,8 +113,9 @@ def _on(world, dev):
 def task_pretrain(world, solo, *, variant, sd, cfg, batches, perms, drops,
                   lr, device="cpu"):
     """Steps of `variant` from state dict `sd`, each rank on its block of
-    every global batch, with the shared permutations `perms` and this
-    rank's self-drop `drops[i][rank]`. Returns the metrics and the state
+    every global batch, with the key shuffle's permutations `perms[i]`
+    (gather: the shared one; alltoall: one pair per rank) and this rank's
+    self-drop `drops[i][rank]`. Returns the metrics and the state
     after each step."""
     import torch
 
@@ -136,11 +137,15 @@ def task_pretrain(world, solo, *, variant, sd, cfg, batches, perms, drops,
     ddp = pdist.wrap(model.encoder_q, _on(world, device))
     metrics, states, moments = [], [], []
     for batch, perm, drop in zip(batches, perms, drops):
-        b = len(perm) // world.size
+        b = len(next(iter(batch.values()))) // world.size
         mine = _tensors({k: v[world.rank * b:(world.rank + 1) * b]
                          for k, v in batch.items()}, device)
+        if cfg.bn_shuffle == "alltoall":  # this rank's pair
+            perm = tuple(torch.from_numpy(p) for p in perm[world.rank])
+        else:
+            perm = torch.from_numpy(perm)
         m = pretrain_step(model, opt, mine, lr, cfg, drop_self=drop[world.rank],
-                          update=True, ddp=ddp, perm=torch.from_numpy(perm))
+                          update=True, ddp=ddp, perm=perm)
         metrics.append({k: float(v) for k, v in m.items()})
         states.append(_np_state(model))
         moments.append({"encoder_q." + n: opt.state[p]["exp_avg"].cpu().numpy()
@@ -182,6 +187,39 @@ def task_world_one(world, solo, *, variant, sd, cfg, batches, lr):
             metrics.append({k: float(v) for k, v in m.items()})
         out[name] = {"metrics": metrics, "state": _np_state(model)}
     return out
+
+
+def task_alltoall(world, solo, *, rows, perms, sd, cfg, keys_in, gather_perm):
+    """The alltoall shuffle of this rank's block of `rows` under its pair
+    perms[rank], and its unshuffle; then the key encode of this rank's
+    block of `keys_in` (a batch the ranks do not divide) under
+    --bn_shuffle alltoall and under gather, with the gather permutation
+    `gather_perm`. Returns the shuffled and restored rows and both keys."""
+    import torch
+
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.models import moco
+    from coclr_tpu_torch.parallel import train_step
+
+    b = len(rows) // world.size
+    mine = torch.from_numpy(rows[world.rank * b:(world.rank + 1) * b])
+    pair = tuple(torch.from_numpy(p) for p in perms[world.rank])
+    shuffled = moco.batch_shuffle_alltoall(mine, pair, world.group)
+    restored = moco.batch_unshuffle_alltoall(shuffled, pair, world.group)
+
+    cfg = PretrainConfig(**cfg)
+    model = moco.MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype)
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()}, strict=True)
+    model.train()
+    b = len(keys_in) // world.size
+    x2 = torch.from_numpy(keys_in[world.rank * b:(world.rank + 1) * b])
+    with torch.no_grad():
+        keys = {mode: train_step._encode_keys(
+            model, x2, world.group, torch.from_numpy(gather_perm), mode).numpy()
+            for mode in ("alltoall", "gather")}
+    return {"shuffled": shuffled.numpy(), "restored": restored.numpy(),
+            "keys": keys}
 
 
 class _Samples:
@@ -281,5 +319,6 @@ def task_run_pretrain(world, solo, *, cfg, workdir, batches=None,
     return out
 
 
-TASKS = {"pretrain": task_pretrain, "world_one": task_world_one,
+TASKS = {"pretrain": task_pretrain, "alltoall": task_alltoall,
+         "world_one": task_world_one,
          "classifier": task_classifier, "run_pretrain": task_run_pretrain}
