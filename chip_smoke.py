@@ -28,9 +28,11 @@ non-zero exit on failure:
    batch 32, moco-k 2048, moco-dim 128, bfloat16) for 12 steps on a
    synthetic two-stream UCF LMDB, with the launch counts of both kernels,
    and the epoch checkpoint read back; then the step on a device-resident
-   batch, and a torch.profiler window over 3 such steps: each kernel's
-   device time in the step, the device's busy share, the 10 device ops
-   and the 8 host ops that take most;
+   batch, and a torch.profiler window over 3 such steps, read by the
+   package's trace reader (coclr_tpu_torch/utils/profiling.py): each
+   kernel's device time and launches in the step, the device's busy share,
+   the 10 device ops and the 8 host ops that take most (each later
+   profiler window is read the same way);
 5. UberNCE: run_pretrain(model='ubernce') at the same width for 6 steps;
    launches per step, and the batch labels in the queue rows written;
 6. CoCLR loop: run_pretrain(model='coclr', ucf101-2stream-2clip) at full
@@ -63,7 +65,15 @@ non-zero exit on failure:
    (an r50 sampler); the r50 finetune (3 loop steps, validation, the
    device-resident step); one RGB retrieval pass (2048-wide features).
    Each path launches jitter once and pool1d_bwd twice a step;
-10. ddp: data parallelism through the entry points, in spawned processes
+10. profile: run_pretrain (S3D InfoNCE, full width) with profile_steps 3:
+   the gzipped trace under <exp>/trace read back (device time a step, busy
+   share, top 10 ops; jitter once and pool1d_bwd 37 times a step); the
+   profile tool (coclr_tpu_torch.tools.profile_step) for infonce, finetune
+   and infonce --net r50 at 3 steps, each JSON line printed, its device
+   time within 15 % of phase 4's, 7's and 9's window over the same
+   program and both kernels in its categories; the port's
+   validate_structure on the synthetic RGB and flow LMDBs;
+11. ddp: data parallelism through the entry points, in spawned processes
    started as torchrun starts them (RANK, WORLD_SIZE, LOCAL_RANK,
    MASTER_ADDR, MASTER_PORT), each loading the kernels built in phase 1:
    - run_pretrain InfoNCE at full width for 6 steps as the one rank of an
@@ -82,10 +92,10 @@ non-zero exit on failure:
      shuffle-BN gather and of one alltoall exchange (two processes sharing
      one card over gloo: the distributed logic, not a multi-GPU
      throughput);
-11. one JSON line {"kernels": [...]} with each kernel's launches (per path
+12. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
-12. last line: {"ok": true, "device": {...}}.
+13. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -1386,14 +1396,35 @@ def glob_ckpts(root):
             if f.endswith(".pth.tar")]
 
 
+def print_profile(tag, prof, n):
+    """Print a trace reader summary (coclr_tpu_torch/utils/profiling.py) of n
+    steps: busy share, device ops and time per step, the top device ops and
+    the port's two kernels."""
+    print(f"[{tag}] {n} steps: device busy {prof['busy_us_per_step'] / 1e3:.1f} "
+          f"ms of {prof['window_us_per_step'] / 1e3:.1f} ms wall a step = "
+          f"{prof['busy']:.1%} busy; {prof['device_ops_per_step']:.0f} device "
+          f"ops, {prof['device_us_per_step'] / 1e3:.2f} ms of device op time, "
+          f"{prof['host_launches_per_step']:.0f} host launch calls per step",
+          flush=True)
+    cats = {k: round(v / 1e3, 3) for k, v in prof["categories_us_per_step"].items()}
+    print(f"[{tag}] device ms per step by category: {json.dumps(cats)}",
+          flush=True)
+    for name, us, launches in prof["top_ops_us_per_step"]:
+        print(f"[{tag}]   {us / 1e3:8.3f} ms/step {launches:6.1f}/step  "
+              f"{name[:110]}", flush=True)
+    print(f"[{tag}] the port's kernels per step: "
+          f"{json.dumps(prof['kernels'])}", flush=True)
+
+
 def profile_steps(step, n, expect=("jitter", "pool1d_bwd")):
-    """torch.profiler over n synchronized steps: prints the device busy
-    share, the device time per step of the 10 device ops that take most and
-    of the port's two kernels, and the 8 host ops with the most self time;
-    fails unless each kernel in `expect` ran; returns the kernels' ms per
-    step and the busy share."""
+    """torch.profiler over n synchronized steps, read by the package's trace
+    reader (coclr_tpu_torch/utils/profiling.py read_trace on the live
+    profiler): prints the summary (print_profile) and the 8 host ops with
+    the most self time; fails unless each kernel in `expect` ran; returns
+    each kernel's ms per step, the busy share and the device op time (ms)
+    per step."""
     import torch
-    from torch.autograd import DeviceType
+    from coclr_tpu_torch.utils.profiling import read_trace
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1403,35 +1434,112 @@ def profile_steps(step, n, expect=("jitter", "pool1d_bwd")):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(spans, "the profiler recorded no device activity")
-    per_name, busy, reach = {}, 0.0, -math.inf
-    for start, end, name in spans:
-        per_name[name] = per_name.get(name, 0.0) + (end - start)
-        busy += max(0.0, end - max(start, reach))  # union of device intervals
-        reach = max(reach, end)
-    print(f"[profile] {n} device-resident steps: device busy {busy / 1e3:.1f} ms "
-          f"of {wall_us / 1e3:.1f} ms wall = {busy / wall_us:.1%} busy; "
-          f"{len(spans)} device ops, {sum(per_name.values()) / 1e3 / n:.2f} ms of "
-          f"device op time per step", flush=True)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
-    for name, us in top:
-        print(f"[profile]   {us / 1e3 / n:8.3f} ms/step  {name[:110]}", flush=True)
+    summary = read_trace(prof, n, topk=10, wall_us=wall_us)
+    check(summary["device_ops_per_step"] > 0,
+          "the profiler recorded no device activity")
+    print_profile("profile", summary, n)
     # where the host's time goes (self time, inflated by the profiler itself)
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
     for a in host:
         print(f"[profile]   host {a.self_cpu_time_total / 1e3 / n:8.3f} ms/step "
               f"{a.count / n:7.1f} calls/step  {a.key[:90]}", flush=True)
-    kernels = {key: sum(us for name, us in per_name.items() if tag in name) / 1e3 / n
-               for key, tag in (("jitter", "jitter_kernel"),
-                                ("pool1d_bwd", "pool1d_bwd_kernel"))}
-    print(f"[profile] the port's kernels in the step (ms per step): {kernels}",
-          flush=True)
+    kernels = {key: summary["kernels"][f"{key}_kernel"]["us_per_step"] / 1e3
+               for key in ("jitter", "pool1d_bwd")}
     check(all(kernels[k] > 0 for k in expect),
           "the profiler saw no launch of one of the port's kernels")
-    kernels["busy"] = busy / wall_us
+    kernels["busy"] = summary["busy"]
+    kernels["device_ms"] = summary["device_us_per_step"] / 1e3
     return kernels
+
+
+def phase_profile(work, data_root, paths):
+    """profile: the port's profiling as a user runs it.
+    (a) run_pretrain (S3D InfoNCE, full width) with profile_steps 3 over the
+        12-step epoch: the trace file under <exp>/trace, read back by the
+        package's reader; jitter once and pool1d_bwd 37 times a step;
+    (b) the tool (python -m coclr_tpu_torch.tools.profile_step, called
+        in-process) for infonce, finetune and infonce --net r50, 3 steps
+        each: its device time per step within 15 % of this script's own
+        profiler window over the same program (phases 4, 7 and 9; the
+        window's finetune step runs main_classifier's Adam where the tool
+        runs SGD, as the JAX tool does), both kernels in its categories;
+    (c) the port's validate_structure on the synthetic RGB and flow LMDBs.
+    Returns the paths it counted."""
+    from coclr_tpu_torch.data.lmdb_check import validate_structure
+    from coclr_tpu_torch.data.lmdb_format import LMDBReader
+    from coclr_tpu_torch.tools import profile_step
+    from coclr_tpu_torch.utils.profiling import (TRACE_SUFFIX, read_trace,
+                                                trace_events)
+
+    out = {}
+    t0 = time.time()
+    cfg = full_width("infonce", data_root, profile_steps=3,
+                     name_prefix="profiled_")
+    _, info, per_step, counts, _ = run_counted(cfg, work, 12)
+    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
+          f"[profile-loop] unexpected launches per step: {per_step}")
+    trace = info["trace"]
+    check(trace is not None and os.path.isfile(os.path.join(work, trace))
+          and trace.endswith(TRACE_SUFFIX)
+          and os.path.dirname(trace) == os.path.join(info["exp_path"], "trace"),
+          f"[profile-loop] no trace file under <exp>/trace: {trace}")
+    size = os.path.getsize(os.path.join(work, trace))
+    loop = read_trace(os.path.join(work, trace), 3, topk=10)
+    print(f"[profile-loop] --profile_steps 3 wrote {trace} ({size} bytes, "
+          f"gzipped) at steps 9-11 of 12", flush=True)
+    print_profile("profile-loop", loop, 3)
+    events, _ = trace_events(os.path.join(work, trace))
+    copies = [(n, d) for c, n, _, d in events if c == "gpu_memcpy"]
+    print(f"[profile-loop] host-device copies in the window: {len(copies)}, "
+          f"{sum(d for _, d in copies) / 1e3:.3f} ms in all "
+          f"({sorted({n for n, _ in copies})})", flush=True)
+    seen = {k: v["launches_per_step"] for k, v in loop["kernels"].items()}
+    check(seen == {"jitter_kernel": 1, "pool1d_bwd_kernel": 37},
+          f"[profile-loop] kernel launches per step in the trace: {seen}")
+    out["profile_loop"] = {"counts": counts, "per_step": per_step,
+                           "trace_summary": loop}
+
+    windows = {"infonce": paths["infonce"]["in_step"]["device_ms"],
+               "finetune": paths["finetune"]["in_step"]["device_ms"],
+               "r50_infonce": paths["r50_infonce"]["in_step"]["device_ms"]}
+    runs = {"infonce": ["--workload", "infonce"],
+            "finetune": ["--workload", "finetune"],
+            "r50_infonce": ["--workload", "infonce", "--net", "r50"]}
+    for name, argv in runs.items():
+        logdir = os.path.join(work, "profile_" + name)
+        line, counts, sec, _ = counted(lambda: profile_step.main(
+            argv + ["--steps", "3", "--topk", "10", "--logdir", logdir]), work)
+        pool = 2 if name.startswith("r50") else 37
+        check(counts == {"jitter": 6, "pool1d_bwd": 6 * pool},
+              f"[profile-tool] {name}: launches in 3 warm-up and 3 traced "
+              f"steps: {counts}")
+        cats = line["categories_us_per_step"]
+        check(cats.get("jitter_kernel", 0) > 0
+              and cats.get("pool1d_bwd_kernel", 0) > 0,
+              f"[profile-tool] {name}: the port's kernels are not in "
+              f"categories_us_per_step: {sorted(cats)}")
+        tool_ms = line["device_us_per_step"] / 1e3
+        ratio = tool_ms / windows[name]
+        print(f"[profile-tool] {name}: {tool_ms:.2f} ms of device op time a "
+              f"step against {windows[name]:.2f} ms in this script's window "
+              f"over the same program ({ratio - 1:+.1%}; limit 15 %); busy "
+              f"{line['busy']:.1%}; {sec:.1f} s", flush=True)
+        check(abs(ratio - 1) <= 0.15,
+              f"[profile-tool] {name}: the tool's device time is not within "
+              f"15 % of the window's")
+        out["profile_tool_" + name] = {"counts": counts, "line": line}
+
+    for name in ("ucf101_frame.lmdb", "ucf101_tvl1_frame.lmdb"):
+        path = os.path.join(data_root, "UCF101", name)
+        stats = validate_structure(path)
+        with LMDBReader(path) as db:
+            entries = len(db)
+        check(stats["entries"] == entries > 0,
+              f"[lmdb-check] {name}: {stats} against {entries} entries read")
+        print(f"[lmdb-check] {name} passes validate_structure: {stats}",
+              flush=True)
+    print(f"[profile] phase took {time.time() - t0:.1f} s", flush=True)
+    return out
 
 
 def main():
@@ -1488,6 +1596,7 @@ def main():
         t0 = time.time()
         paths.update(phase_resnet(dev, work, data_root))
         print(f"[resnet] phase took {time.time() - t0:.1f} s", flush=True)
+        paths.update(phase_profile(work, data_root, paths))
         paths.update(phase_ddp(work, data_root, pretrained, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1496,7 +1605,7 @@ def main():
                "probe", "r50_infonce", "r3d50_infonce", "r50_coclr_open",
                "r50_finetune", "ddp_nccl_1rank", "ddp_gloo_2rank",
                "ddp_gloo_2rank_alltoall", "ddp_gloo_2rank_coclr_open",
-               "ddp_gloo_2rank_finetune")
+               "ddp_gloo_2rank_finetune", "profile_loop")
 
     def launches(name):
         return {"launches": sum(p["counts"][name] for p in paths.values()),

@@ -52,6 +52,7 @@ class PretrainConfig:
     compute_dtype: str = "bfloat16"
     data_root: str = ""
     worker_mode: str = "thread"
+    profile_steps: int = 0              # >0: trace N steps of the first epoch
 
     # data parallelism across ranks (parallel/dist.py)
     bn_shuffle: str = "gather"          # gather | alltoall | none

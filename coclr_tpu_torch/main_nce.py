@@ -10,12 +10,14 @@ device: cuda (the default; cuda:LOCAL_RANK under torchrun) or cpu. Under a
 launcher these are acted on: `--batch_size` (per card: the global batch is
 batch_size x ranks), `--dist-backend` (nccl, or gloo when asked; the CPU is
 always gloo), `--bn_shuffle` (gather, alltoall or none) and
-`--num_devices` (when set, it must equal WORLD_SIZE). Accepted and ignored:
+`--num_devices` (when set, it must equal WORLD_SIZE); `--profile_steps N`
+traces N steps of the first epoch into <exp>/trace (a gzipped Chrome trace
+per rank; train/pretrain.py). Accepted and ignored:
 `--gpu`, `--world-size`, `--rank`, `--dist-url`,
 `--multiprocessing-distributed`, `--local_rank` (torchrun's environment
 gives them), the mesh and sequence-parallel knobs `--dcn_size`, `--sp_size`
 and `--sph_size`, `--multihost` and its flags, `--aug_backend`,
-`--aug_order`, `--profile_steps`, `--ckpt_format` and `--reset_lr`.
+`--aug_order`, `--ckpt_format` and `--reset_lr`.
 `build_parser(coclr=True)` gives the flags of main_coclr.py
 (coclr_tpu_torch/main_coclr.py).
 """
@@ -80,7 +82,6 @@ def build_parser(coclr: bool = False):
     parser.add_argument('--dcn_size', default=1, type=int)
     parser.add_argument('--sp_size', default=1, type=int)
     parser.add_argument('--sph_size', default=1, type=int)
-    parser.add_argument('--profile_steps', default=0, type=int)
     parser.add_argument('--ckpt_format', default='flax', type=str)
     parser.add_argument('--multihost', action='store_true')
     parser.add_argument('--coordinator', default='', type=str)
@@ -100,6 +101,9 @@ def build_parser(coclr: bool = False):
                         choices=['thread', 'process'])
     parser.add_argument('--device', default='cuda', type=str,
                         help='cuda (default) or cpu')
+    parser.add_argument('--profile_steps', default=0, type=int,
+                        help='>0: trace N steps of the first epoch into '
+                             '<exp>/trace')
     return parser
 
 
@@ -127,7 +131,7 @@ def cfg_from_args(args):
         compute_dtype=args.compute_dtype,
         data_root=args.data_root, worker_mode=args.worker_mode,
         bn_shuffle=args.bn_shuffle, dist_backend=args.dist_backend,
-        num_devices=args.num_devices)
+        num_devices=args.num_devices, profile_steps=args.profile_steps)
 
 
 def main(argv=None):

@@ -15,6 +15,11 @@ gather's global one drawn alike on every rank, alltoall's local pair per
 rank. Only rank 0 reads the init files (the model,
 the optimizer state and the loop position are then broadcast from it) and
 writes checkpoints and logs; the preemption flag is agreed once per step.
+
+`profile_steps` N > 0 traces N steps of the first epoch with torch.profiler
+into <exp>/trace (utils/profiling.py; one gzipped Chrome trace per rank),
+from step 10 when the epoch is long enough, else as late as fits, as the
+JAX package does; each step sits in a `train#<iteration>` annotation.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from coclr_tpu_torch.parallel import dist
 from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
 from coclr_tpu_torch.train import init_surgery
 from coclr_tpu_torch.train.lr import get_lr
-from coclr_tpu_torch.utils import malloc_trim, prepare_run
+from coclr_tpu_torch.utils import malloc_trim, prepare_run, profiling
 from coclr_tpu_torch.utils.checkpoint import (make_payload, resume_from,
                                               save_checkpoint)
 from coclr_tpu_torch.utils.logging import Logger, PlotterThread
@@ -214,13 +219,23 @@ class QueueFill:
         self.ptr = (self.ptr + rows) % len(self.filled)
 
 
+def close_trace(window, steps: int) -> str:
+    """Close a --profile_steps window (the card is synchronized first, as
+    the JAX loop blocks on the step's loss) and return its trace file."""
+    window.__exit__(None, None, None)
+    print(f"=> device trace ({steps} steps) written to {window.path}",
+          flush=True)
+    return window.path
+
+
 def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                  loader=None, device="cuda"):
     """Train per cfg on `device` ('cuda' unless the caller asks for 'cpu';
     raises when CUDA is asked for and missing), as one rank of several
     under a distributed launcher. `dataset`, `loader` (this rank's batches)
     and `max_steps` (per epoch) are injectable for tests. Returns
-    (model, optimizer, info)."""
+    (model, optimizer, info); info["trace"] is the --profile_steps trace
+    file, or None."""
     device = prepare_run(device)
     world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices)
     rank, ranks = (world.rank, world.size) if world else (0, 1)
@@ -265,6 +280,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
 
     train_acc, train_loss = 0.0, float("nan")
     step_s = []
+    trace = None
     preempted = False
     epoch = start_epoch
     with _PreemptionGuard() as guard:
@@ -291,9 +307,19 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                         meters["Self-acc@5"].update(float(pending["top5_self"]),
                                                     global_batch)
 
+            # --profile_steps N: the window of the JAX package's loop
+            prof_at = -1
+            if cfg.profile_steps and epoch == start_epoch:
+                prof_at = max(0, min(10, len(loader) - cfg.profile_steps))
+            window = None
+
             steps_this_epoch = 0
             for idx, batch in enumerate(loader):
                 meters["Data"].update(time.time() - end)
+                if idx == prof_at:
+                    window = profiling.device_trace(
+                        os.path.join(exp_path, "trace"), device)
+                    window.__enter__()
                 batch = upload(batch, device)
                 seed = step_seed(cfg.seed, iteration, rank)
                 gen.manual_seed(seed)
@@ -308,10 +334,15 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                     perm_gen.manual_seed(step_seed(cfg.seed, iteration, rank)
                                          + SHUFFLE_SEED)
                     perm = draw_shuffle_alltoall(perm_gen, cfg.batch_size)
-                metrics = pretrain_step(
-                    model, optimizer, preprocess(batch, gen), lr, cfg,
-                    drop_self=drop_self, update=fill is None or fill.full,
-                    ddp=ddp, perm=perm)
+                with profiling.step_annotation("train", iteration):
+                    metrics = pretrain_step(
+                        model, optimizer, preprocess(batch, gen), lr, cfg,
+                        drop_self=drop_self, update=fill is None or fill.full,
+                        ddp=ddp, perm=perm)
+                if window is not None \
+                        and idx == prof_at + cfg.profile_steps - 1:
+                    trace = close_trace(window, cfg.profile_steps)
+                    window = None
                 if fill is not None:
                     fill.advance(global_batch)
                 drain(pending)  # waits for step i-1 while step i runs
@@ -348,6 +379,8 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                     break
                 if max_steps and steps_this_epoch >= max_steps:
                     break
+            if window is not None:  # the epoch ended inside the window
+                trace = close_trace(window, steps_this_epoch - prof_at)
             drain(pending)
             if preempted:
                 break
@@ -383,4 +416,5 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     return model, optimizer, {"best_acc": best_acc, "exp_path": exp_path,
                               "train_acc": train_acc, "loss": train_loss,
                               "preempted": preempted, "step_s": step_s,
-                              "iteration": iteration, "ranks": ranks}
+                              "iteration": iteration, "ranks": ranks,
+                              "trace": trace}
