@@ -92,10 +92,29 @@ non-zero exit on failure:
      shuffle-BN gather and of one alltoall exchange (two processes sharing
      one card over gloo: the distributed logic, not a multi-GPU
      throughput);
-12. one JSON line {"kernels": [...]} with each kernel's launches (per path
+12. seqpar: sequence parallelism (--sp_size / --sph_size) through the
+   entry points, in two spawned ranks sharing cuda:0 over gloo, each
+   loading the kernels built in phase 1 (seqpar_rank):
+   (a) main_nce --sp_size 2, InfoNCE at full width (32 clips a data
+       shard, each rank a T chunk of 16) for 6 loop steps: both ranks end
+       with the same encoder_q and queue, only rank 0 writes the
+       checkpoint (read back strictly), each rank launches jitter once
+       (F = 1024) and pool1d_bwd 37 times a step;
+   (b) the float32 eval-mode S3D encoder (TF32 off) at sp 2 and at sph 2
+       within 1e-4 of the same forward unsharded on the 128-d output;
+   (c) device-resident steps: S3D InfoNCE at sph 2, r50 InfoNCE at sp 2,
+       S3D CoCLR with a full queue at sp 2; per-rank step time and peak
+       memory beside the same program unsharded (phases 4, 9 and 8), and
+       the time of the largest temporal halo and of one sp_pmean;
+   then, in this process, kernel 2 exact (bfloat16 and float32) against
+   its plain version at every launch shape of (a) and (c) that the
+   unsharded steps do not take, timed, and kernel 1 at the sp launch
+   (F = 1024, gray on). The ranks time-slice one card: their times are
+   not scaling numbers;
+13. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
-13. last line: {"ok": true, "device": {...}}.
+14. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -216,10 +235,59 @@ def jitter_ops(frames, size, fc, fh, gray, orders):
     return total * size * size
 
 
-def phase_jitter(dev):
+def jitter_case(frames, size, dev, gen, timed, tag="jitter"):
+    """Kernel 1 at F = `frames` of `size` x `size` against its plain version
+    (gray on for three frames in four), from planar and channels-last
+    frames; with `timed`, its times and bound. Returns the numbers."""
     import torch
     from coclr_tpu_torch.kernels.jitter import (fused_jitter_normalize,
                                                 jitter_normalize_plain)
+
+    args = jitter_inputs(frames, size, dev, gen)
+    cl = (channels_last(args[0]),) + args[1:]
+    got = fused_jitter_normalize(*args).float()
+    want = jitter_normalize_plain(*args).float()
+    torch.cuda.synchronize()
+    # 1 bf16 ULP of the reference value: 2^(floor(log2|v|) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    diff = (got - want).abs()
+    over = float((diff > ulp).float().mean())
+    max_err = float(diff.max())
+    same = torch.equal(fused_jitter_normalize(*cl).float(), got)
+    print(f"[{tag}] F={frames} S={size}: {over:.2e} of outputs more than "
+          f"1 bf16 ULP off (cap 1e-3, hue-branch ties), max abs err "
+          f"{max_err:.4g}; channels-last input gives the planar result "
+          f"bit for bit: {same}", flush=True)
+    check(over <= 1e-3, "jitter kernel disagrees with its plain version")
+    check(same, "jitter kernel differs between input layouts")
+    r = {"max_abs_err": max_err, "over_ulp": over}
+    if timed:
+        x, fb, fc, fs, fh, gray, orders = args
+        r.update(ms_planar=cuda_ms(lambda: fused_jitter_normalize(*args)),
+                 ms=cuda_ms(lambda: fused_jitter_normalize(*cl)),
+                 plain_ms=cuda_ms(lambda: jitter_normalize_plain(*args),
+                                  reps=3, warmup=1))
+        nbytes = x.numel() * (1 + 2) + frames * 6 * 4
+        ops = jitter_ops(frames, size, fc, fh, gray, orders)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        r.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=nbytes, ops=ops)
+        print(f"[{tag}] F={frames}: kernel {r['ms']:.4f} ms from "
+              f"channels-last frames (the main path's), "
+              f"{r['ms_planar']:.4f} ms from planar frames; plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {nbytes} B, {ops} f32 ops)", flush=True)
+        del x, fb, fc, fs, fh, gray, orders
+    del args, cl, got, want, ulp, diff
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_jitter(dev):
+    import torch
+    from coclr_tpu_torch.kernels.jitter import fused_jitter_normalize
 
     gen = torch.Generator(dev).manual_seed(0)
     result = {}
@@ -228,46 +296,9 @@ def phase_jitter(dev):
     # instead of staging
     for frames, size in ((2048, 128), (4096, 128), (2048, 112), (64, 9),
                          (16, 288)):
-        args = jitter_inputs(frames, size, dev, gen)
-        cl = (channels_last(args[0]),) + args[1:]
-        got = fused_jitter_normalize(*args).float()
-        want = jitter_normalize_plain(*args).float()
-        torch.cuda.synchronize()
-        # 1 bf16 ULP of the reference value: 2^(floor(log2|v|) - 7)
-        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-        diff = (got - want).abs()
-        over = float((diff > ulp).float().mean())
-        max_err = float(diff.max())
-        same = torch.equal(fused_jitter_normalize(*cl).float(), got)
-        print(f"[jitter] F={frames} S={size}: {over:.2e} of outputs more than "
-              f"1 bf16 ULP off (cap 1e-3, hue-branch ties), max abs err "
-              f"{max_err:.4g}; channels-last input gives the planar result "
-              f"bit for bit: {same}", flush=True)
-        check(over <= 1e-3, "jitter kernel disagrees with its plain version")
-        check(same, "jitter kernel differs between input layouts")
+        r = jitter_case(frames, size, dev, gen, timed=size == 128)
         if size == 128:
-            x, fb, fc, fs, fh, gray, orders = args
-            result[frames] = r = {
-                "max_abs_err": max_err,
-                "ms_planar": cuda_ms(lambda: fused_jitter_normalize(*args)),
-                "ms": cuda_ms(lambda: fused_jitter_normalize(*cl)),
-                "plain_ms": cuda_ms(lambda: jitter_normalize_plain(*args),
-                                    reps=3, warmup=1)}
-            nbytes = x.numel() * (1 + 2) + frames * 6 * 4
-            ops = jitter_ops(frames, size, fc, fh, gray, orders)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_OPS_PER_S * 1e3
-            r.update(bound_ms=max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                     bytes=nbytes, ops=ops)
-            print(f"[jitter] F={frames}: kernel {r['ms']:.4f} ms from "
-                  f"channels-last frames (the main path's), "
-                  f"{r['ms_planar']:.4f} ms from planar frames; plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}: {nbytes} B, {ops} f32 ops)", flush=True)
-            del x, fb, fc, fs, fh, gray, orders
-        del args, cl, got, want, ulp, diff
-        torch.cuda.empty_cache()
+            result[frames] = r
 
     # the null path (factors 1, fh 0, gray -1, identity normalize): exact
     for size in (128, 9, 288):
@@ -291,27 +322,15 @@ def pool_launch_shapes(dev, net="s3d"):
     of the query encoder's backbone `net`."""
     import torch
     from coclr_tpu_torch.backbones import select_backbone
-    from coclr_tpu_torch.kernels import pool
-
-    shapes = {}
-    original = pool.pool1d_bwd
-
-    def record(x, out, g, k, s, lo):
-        key = tuple(x.shape) + (k, s, lo)
-        shapes[key] = shapes.get(key, 0) + 1
-        return original(x, out, g, k, s, lo)
 
     net = select_backbone(net, dtype=torch.bfloat16)[0].to(dev).train()
     x = torch.randn(B, 3, T, S, S, device=dev)
-    pool.pool1d_bwd = record
-    try:
+    with PoolShapes() as rec:
         net(x).float().sum().backward()
         torch.cuda.synchronize()
-    finally:
-        pool.pool1d_bwd = original
     del net, x
     torch.cuda.empty_cache()
-    return shapes
+    return rec.shapes
 
 
 def pool_inputs(p, n, q, k, s, lo, dtype, dev, gen):
@@ -569,9 +588,9 @@ def phase_slice(dev, work, data_root):
           f"read back strictly ({len(ckpt['state_dict'])} tensors)", flush=True)
     del back
 
-    dev_ms, step_kernels, _, _ = infonce_device_step(dev, cfg, "slice")
+    dev_ms, step_kernels, dev_peak, _ = infonce_device_step(dev, cfg, "slice")
     return {"counts": counts, "per_step": per_step, "ckpt": ckpt_path,
-            "in_step": step_kernels, "dev_ms": dev_ms}
+            "in_step": step_kernels, "dev_ms": dev_ms, "peak": dev_peak}
 
 
 def infonce_device_step(dev, cfg, tag, profile=True):
@@ -1390,6 +1409,341 @@ def phase_ddp(work, data_root, pretrained, card):
     return paths
 
 
+SP_RANKS = 2  # the seqpar phase's ranks, sharing cuda:0 over gloo
+
+
+def conditioned_(backbone, seed=0):
+    """Well-conditioned random backbone weights in place (He-scaled convs,
+    perturbed BatchNorm affine and running statistics), so that an
+    eval-mode output is O(1) and a float32 comparison of it means
+    something."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in backbone.modules():
+            if isinstance(mod, torch.nn.Conv3d):
+                mod.weight.normal_(0.0, (2.0 / mod.weight[0].numel()) ** 0.5,
+                                   generator=g)
+            elif isinstance(mod, torch.nn.BatchNorm3d):
+                mod.weight.uniform_(0.8, 1.2, generator=g)
+                mod.bias.uniform_(-0.1, 0.1, generator=g)
+                mod.running_mean.uniform_(-0.1, 0.1, generator=g)
+                mod.running_var.uniform_(0.5, 1.5, generator=g)
+    return backbone
+
+
+class PoolShapes:
+    """Inside the block, each pool1d_bwd call's (P, N, Q, k, s, lo) is
+    counted in `shapes`."""
+
+    def __init__(self):
+        self.shapes = {}
+
+    def __enter__(self):
+        from coclr_tpu_torch.kernels import pool
+
+        self.original = pool.pool1d_bwd
+
+        def record(x, out, g, k, s, lo):
+            key = tuple(x.shape) + (k, s, lo)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return self.original(x, out, g, k, s, lo)
+
+        pool.pool1d_bwd = record
+        return self
+
+    def __exit__(self, *exc):
+        from coclr_tpu_torch.kernels import pool
+
+        pool.pool1d_bwd = self.original
+        return False
+
+
+def seqpar_rank(rank, port, out, data_root):
+    """One of the seqpar phase's two ranks, in a process of its own on
+    cuda:0, started as torchrun starts it:
+    (a) main_nce --sp_size 2 (InfoNCE, full width, 32 clips a data shard):
+        6 loop steps through run_pretrain, the launches and pool shapes of
+        the run, encoder_q and the queue equal on both ranks;
+    (b) the float32 eval-mode S3D encoder (TF32 off) at sp 2 and at sph 2
+        against the same forward unsharded, on 4 clips;
+    (c) device-resident steps: S3D InfoNCE at sph 2, r50 InfoNCE at sp 2 and
+        S3D CoCLR with a full queue at sp 2, each with its launches, pool
+        shapes, median step time and peak device memory;
+    and the time of the largest temporal halo of the S3D step and of one
+    sp_pmean of BatchNorm statistics. Writes out/rank<rank>.json."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_RANKS),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as tdist
+    from coclr_tpu_torch import main_nce
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.models.encoder import ProjectionEncoder, init_params_
+    from coclr_tpu_torch.models.moco import MoCo, draw_shuffle
+    from coclr_tpu_torch.ops import seqpar
+    from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
+    from coclr_tpu_torch.parallel import dist
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+    from coclr_tpu_torch.train.pretrain import member_chunk, run_pretrain
+
+    dev = torch.device("cuda", 0)
+    tag = f"seqpar rank {rank}"
+    work = os.path.join(out, f"rank{rank}")
+    os.makedirs(work)
+    res = {"rank": rank}
+
+    # (a) main_nce --sp_size 2 through run_pretrain (pool shapes counted
+    # over the run, kept per step)
+    argv = ["--net", "s3d", "--seq_len", str(T), "--img_dim", str(S),
+            "--batch_size", str(B), "--moco-k", str(K), "--moco-dim", str(DIM),
+            "--epochs", "1", "--workers", "8", "--print_freq", "1",
+            "--data_root", data_root, "--prefix", "smoke", "--dist-backend",
+            "gloo", "--sp_size", "2"]
+    cfg = main_nce.cfg_from_args(main_nce.parse_args(argv))
+    with PoolShapes() as rec:
+        (model, _, info), counts, _, peak = counted(
+            lambda: run_pretrain(cfg, max_steps=6, device="cuda"), work)
+    world = dist.maybe_initialize(dev, "gloo", 0, 2, 1)
+    n = len(info["step_s"])
+    per_step = {k: c / n for k, c in counts.items()}
+    check(n == 6 and math.isfinite(info["loss"]), f"[{tag}] (a) {n} steps, "
+          f"loss {info['loss']}")
+    check(world.sp == 2 and world.n_data == 1 and world.seqpar is not None,
+          f"[{tag}] (a) not a (data 1, sp 2) grid")
+    check(per_step == {"jitter": 1, "pool1d_bwd": 37},
+          f"[{tag}] (a) launches per step {per_step}")
+    check(int(model.queue_ptr) == 6 * B % K, f"[{tag}] (a) queue_ptr")
+    check(same_on_all_ranks(list(model.encoder_q.parameters()) + [model.queue],
+                            world),
+          f"[{tag}] (a) encoder_q or the queue differs between the ranks")
+    res["infonce"] = dict(counts=counts, per_step=per_step, peak=peak,
+                          step_ms=statistics.median(info["step_s"][2:]) * 1e3,
+                          shapes=[list(k) + [v // n]
+                                  for k, v in rec.shapes.items()],
+                          ckpt=os.path.join(work, info["exp_path"], "model",
+                                            "epoch0.pth.tar"))
+    print(f"[{tag}] (a) main_nce --sp_size 2: 6 steps of {B} clips (T chunk "
+          f"{T // 2} of {T}), launches {counts}, median step "
+          f"{res['infonce']['step_ms']:.1f} ms after 2 warm-up, peak "
+          f"{peak / 2**30:.2f} GiB; encoder_q and the queue equal on both "
+          f"ranks", force=True, flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) float32 eval-mode forward, sp 2 and sph 2 against unsharded
+    worlds = {"sp2": world, "sph2": dist.with_seqpar(world, 1, 2)}
+    enc = ProjectionEncoder("s3d", DIM, torch.float32)
+    init_params_(enc, torch.Generator().manual_seed(3))
+    conditioned_(enc[0])
+    enc = enc.to(dev).eval()
+    x = torch.randn(4, 3, T, S, S, device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    with torch.no_grad():
+        ref = enc(x)
+    res["forward"] = {}
+    for name, w in worlds.items():
+        sharded = ProjectionEncoder("s3d", DIM, torch.float32, sp=w.seqpar)
+        sharded.load_state_dict(enc.state_dict())
+        sharded = sharded.to(dev).eval()
+        xs = member_chunk({"x": x}, 2, w.sp_rank, w.sp)["x"]
+        xs = member_chunk({"x": xs}, 3, w.sph_rank, w.sph)["x"].contiguous()
+        with torch.no_grad():
+            y = sharded(xs)
+        err = float((y - ref).abs().max())
+        res["forward"][name] = dict(err=err, scale=float(ref.abs().max()))
+        check(err <= 1e-4, f"[{tag}] (b) {name} forward differs from the "
+                           f"unsharded one by {err} (limit 1e-4)")
+        del sharded, xs, y
+    print(f"[{tag}] (b) float32 eval-mode S3D encoder (TF32 off), 4 clips: "
+          f"max abs difference to the unsharded 128-d output "
+          f"{res['forward']['sp2']['err']:.3g} at sp 2, "
+          f"{res['forward']['sph2']['err']:.3g} at sph 2 (limit 1e-4; output "
+          f"up to {res['forward']['sp2']['scale']:.3g})", force=True,
+          flush=True)
+    del enc, x, ref
+    torch.cuda.empty_cache()
+
+    # the largest temporal halo of the S3D step (Conv_1a's temporal conv,
+    # pad 3 on a T chunk of 16) and one sp_pmean of BatchNorm statistics
+    h = torch.randn(B, 64, T // 2, S // 2, S // 2, device=dev).to(torch.bfloat16)
+    stats = torch.randn(1024, device=dev)
+    for name, fn in (("halo", lambda: seqpar.temporal_halo(h, 3, 3,
+                                                           world.sp_group)),
+                     ("pmean", lambda: seqpar.sp_pmean(stats, world.seqpar))):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[name + "_ms"] = statistics.median(times[1:]) * 1e3
+    res["halo_bytes"] = 2 * B * 64 * 3 * (S // 2) ** 2 * 2
+    del h, stats
+    torch.cuda.empty_cache()
+
+    # (c) device-resident steps
+    for name, net, variant, w, expect in (
+            ("sph2_s3d", "s3d", "infonce", worlds["sph2"], 37),
+            ("sp2_r50", "r50", "infonce", worlds["sp2"], 2),
+            ("sp2_coclr_open", "s3d", "coclr", worlds["sp2"], 37)):
+        cfg = full_width(variant, "", net=net, dataset="ucf101-2stream-2clip",
+                         topk=5, dist_backend="gloo", sp_size=w.sp,
+                         sph_size=w.sph)
+        model = MoCo(net, DIM, K, torch.bfloat16, variant=variant,
+                     sp=w.seqpar).to(dev).train()
+        gen = torch.Generator(dev).manual_seed(10)  # alike on both ranks
+        u8 = lambda: torch.randint(0, 256, (B, 2, T, S, S, 3),
+                                   dtype=torch.uint8, device=dev, generator=gen)
+        batch = {"aug_base": torch.randint(0, 2, (B, 2), dtype=torch.uint8,
+                                           device=dev, generator=gen)}
+        if variant == "coclr":
+            batch.update(seq_rgb=u8(), seq_flow=u8(),
+                         vname=torch.randint(0, 100, (B,), dtype=torch.int32,
+                                             device=dev, generator=gen))
+            model.queue_label.fill_(1)
+            model.queue_vname.copy_(torch.randint(0, 100, (K,), device=dev,
+                                                  generator=gen))
+        else:
+            batch["seq"] = u8()
+        batch = {k: v.contiguous() for k, v in member_chunk(
+            batch, 2, w.sp_rank, w.sp).items()}
+        sp_ctx = (T, w.sp_rank * (T // w.sp)) if w.sp > 1 else None
+        opt = make_optimizer(cfg, model.encoder_q.parameters())
+        ddp = dist.wrap(model.encoder_q, w)
+        pre = make_pretrain_preprocess(cfg)
+        perm = draw_shuffle(torch.Generator().manual_seed(0), B * w.n_data)
+
+        def step():
+            b = member_chunk(pre(batch, gen, sp_ctx), 3, w.sph_rank, w.sph)
+            return pretrain_step(model, opt, b, 1e-3, cfg, ddp=ddp, perm=perm,
+                                 data_group=w.data_group)
+
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        with PoolShapes() as rec:
+            metrics = step()
+        one = {k: kern.launches for k, kern in build.KERNELS.items()}
+        check(one == {"jitter": 1, "pool1d_bwd": expect},
+              f"[{tag}] (c) {name} step launches {one}")
+        check(math.isfinite(float(metrics["loss"])), f"[{tag}] (c) {name} loss")
+        if variant == "coclr":
+            check(float(metrics["queue_is_full"]) == 1.0,
+                  f"[{tag}] (c) the CoCLR gate is not open")
+        check(same_on_all_ranks(list(model.encoder_q.parameters())
+                                + [model.queue], w),
+              f"[{tag}] (c) {name}: encoder_q or the queue differs between "
+              f"the ranks")
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step()["loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[name] = dict(counts=one, dev_ms=statistics.median(ms[1:]),
+                         peak=torch.cuda.max_memory_allocated(),
+                         loss=float(metrics["loss"]),
+                         shapes=[list(k) + [v] for k, v in rec.shapes.items()])
+        print(f"[{tag}] (c) {name} ({net} {variant}, sp {w.sp} x sph "
+              f"{w.sph}) device-resident step: launches {one}, loss "
+              f"{res[name]['loss']:.4f}, median {res[name]['dev_ms']:.1f} ms, "
+              f"peak {res[name]['peak'] / 2**30:.2f} GiB; encoder_q and the "
+              f"queue equal on both ranks", force=True, flush=True)
+        del model, opt, ddp, batch
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    tdist.barrier(group=world.host_group)
+    tdist.destroy_process_group()
+
+
+def phase_seqpar(dev, work, data_root, card, paths, unsharded_shapes):
+    """Sequence parallelism (--sp_size / --sph_size) through the entry points
+    in two spawned ranks that share cuda:0 over gloo (seqpar_rank), then in
+    this process: the new pool1d_bwd launch shapes of (a) and (c) exact
+    against the plain version in bfloat16 and float32 (timed, with their
+    bound and library times), kernel 1 at the sp launch (F = 1024, gray
+    on). Returns the paths it counted and the kernels' sp numbers. Two
+    ranks on one card time-slice it: their times are not scaling numbers."""
+    import torch
+    import torch.multiprocessing as tmp
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  load_reference_state_dict)
+
+    t0 = time.time()
+    out = os.path.join(work, "seqpar")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    tmp.spawn(seqpar_rank, args=(free_port(), out, data_root), nprocs=SP_RANKS)
+    ranks = []
+    for r in range(SP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    wrote = [sorted(glob_ckpts(os.path.join(out, f"rank{r}")))
+             for r in range(SP_RANKS)]
+    check(wrote[0] and not any(wrote[1:]),
+          f"[seqpar] checkpoints not written by rank 0 alone: {wrote}")
+    back = MoCo("s3d", DIM, K, torch.bfloat16)
+    load_reference_state_dict(back, load_checkpoint(
+        ranks[0]["infonce"]["ckpt"])["state_dict"])
+    check(int(back.queue_ptr) == 6 * B % K, "[seqpar] checkpoint read back wrong")
+    del back
+    ranks_s = time.time() - t0
+    add = lambda key: {k: sum(r[key]["counts"][k] for r in ranks)
+                       for k in ("jitter", "pool1d_bwd")}
+    new = {"seqpar_sp2": {"counts": add("infonce"),
+                          "per_step": ranks[0]["infonce"]["per_step"]}}
+    for name in ("sph2_s3d", "sp2_r50", "sp2_coclr_open"):
+        new["seqpar_" + name] = {"counts": add(name),
+                                 "per_step": ranks[0][name]["counts"]}
+    same = {"sph2_s3d": ("infonce", "S3D InfoNCE"),
+            "sp2_r50": ("r50_infonce", "r50 InfoNCE"),
+            "sp2_coclr_open": ("coclr_open", "S3D CoCLR full queue")}
+    print(f"[seqpar] 2 ranks sharing one card ({card}) over gloo, {ranks_s:.1f} "
+          f"s: (a) main_nce --sp_size 2 loop step per rank "
+          f"{[round(r['infonce']['step_ms'], 1) for r in ranks]} ms, peak "
+          f"{[round(r['infonce']['peak'] / 2**30, 2) for r in ranks]} GiB; "
+          f"checkpoint {wrote[0]} from rank 0 only, read back strictly; one "
+          f"temporal halo of {ranks[0]['halo_bytes']} B (Conv_1a, pad 3) "
+          f"{[round(r['halo_ms'], 2) for r in ranks]} ms, one sp_pmean of "
+          f"1024 floats {[round(r['pmean_ms'], 3) for r in ranks]} ms",
+          flush=True)
+    for name, (ref, what) in same.items():
+        un = paths[ref]
+        print(f"[seqpar] {what} ({name}): per-rank step "
+              f"{[round(r[name]['dev_ms'], 1) for r in ranks]} ms and peak "
+              f"{[round(r[name]['peak'] / 2**30, 2) for r in ranks]} GiB; the "
+              f"same program unsharded on the card alone {un['dev_ms']:.1f} ms, "
+              f"peak {un['peak'] / 2**30:.2f} GiB (peak ratio "
+              f"{ranks[0][name]['peak'] / un['peak']:.2f}); the ranks "
+              f"time-slice one card, so the times are not scaling numbers",
+              flush=True)
+
+    # kernel 2 at every new launch shape of (a) and (c), exact in both dtypes
+    gen = torch.Generator(dev).manual_seed(5)
+    pool = {}
+    for name, key in (("s3d_sp2", "infonce"), ("s3d_sph2", "sph2_s3d"),
+                      ("r50_sp2", "sp2_r50")):
+        shapes = {tuple(v[:6]): v[6] for v in ranks[0][key]["shapes"]}
+        fresh = {k: c for k, c in shapes.items() if k not in unsharded_shapes}
+        check(fresh, f"[seqpar] no new pool shape at {name}")
+        pool[name] = measure_pool(fresh, dev, gen, f"pool-{name}",
+                                  exact_f32=True)
+        pool[name]["launches_per_step"] = sum(shapes.values())
+    coclr = {tuple(v[:6]) for v in ranks[0]["sp2_coclr_open"]["shapes"]}
+    sp2 = {tuple(v[:6]) for v in ranks[0]["infonce"]["shapes"]}
+    check(coclr == sp2, "[seqpar] the CoCLR sp 2 step pools at other shapes "
+                        "than the InfoNCE one")
+    # kernel 1 at the sp 2 launch: 32 clips x 2 x a T chunk of 16
+    jit = jitter_case(B * 2 * T // 2, S, dev, gen, timed=True,
+                      tag="jitter-sp2")
+    print(f"[seqpar] phase took {time.time() - t0:.1f} s", flush=True)
+    return new, {"pool": pool, "jitter": jit, "ranks": ranks}
+
+
 def glob_ckpts(root):
     return [os.path.relpath(os.path.join(d, f), root)
             for d, _, files in os.walk(root) for f in files
@@ -1598,6 +1952,11 @@ def main():
         print(f"[resnet] phase took {time.time() - t0:.1f} s", flush=True)
         paths.update(phase_profile(work, data_root, paths))
         paths.update(phase_ddp(work, data_root, pretrained, card))
+        unsharded = {tuple(r["shape"]) for r in pool["rows"]
+                     + pool["r50"]["rows"]}
+        sp_paths, sp = phase_seqpar(dev, work, data_root, card, paths,
+                                    unsharded)
+        paths.update(sp_paths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1605,7 +1964,8 @@ def main():
                "probe", "r50_infonce", "r3d50_infonce", "r50_coclr_open",
                "r50_finetune", "ddp_nccl_1rank", "ddp_gloo_2rank",
                "ddp_gloo_2rank_alltoall", "ddp_gloo_2rank_coclr_open",
-               "ddp_gloo_2rank_finetune", "profile_loop")
+               "ddp_gloo_2rank_finetune", "profile_loop", "seqpar_sp2",
+               "seqpar_sph2_s3d", "seqpar_sp2_r50", "seqpar_sp2_coclr_open")
 
     def launches(name):
         return {"launches": sum(p["counts"][name] for p in paths.values()),
@@ -1627,7 +1987,8 @@ def main():
              replaces="coclr_tpu/ops/pallas_aug.py:146",
              **launches("jitter"),
              max_abs_err=max(j2["max_abs_err"], j4["max_abs_err"],
-                             jit_eval["max_abs_err"]),
+                             jit_eval["max_abs_err"],
+                             sp["jitter"]["max_abs_err"]),
              ms=j2["ms"], kernel_ms=j2["ms"], ms_planar=j2["ms_planar"],
              plain_ms=j2["plain_ms"], bound_ms=j2["bound_ms"],
              bound_by=j2["bound_by"], library_ms=None,
@@ -1643,12 +2004,22 @@ def main():
                        "channels-last view after the uint8 flip, gray off -> "
                        "bfloat16",
                  **{k: jit_eval[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by")})),
+                                             "bound_ms", "bound_by")}),
+             sp_launch=dict(
+                 shape="F=1024 frames (32 clips x 2 x a T chunk of 16, "
+                       "--sp_size 2), 3x128x128 uint8 channels-last view, "
+                       "gray on -> bfloat16",
+                 library_ms=None,
+                 **{k: sp["jitter"][k] for k in ("max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms",
+                                                 "bound_by")})),
         dict(name="pool1d_bwd", route="cuda",
              source="coclr_tpu_torch/csrc/pool1d_bwd.cu",
              replaces="coclr_tpu/ops/pallas_pool.py:106",
              **launches("pool1d_bwd"),
-             max_abs_err=pool["max_abs_err"], ms=pool["ms"], kernel_ms=pool["ms"],
+             max_abs_err=max([pool["max_abs_err"]]
+                             + [v["max_abs_err"] for v in sp["pool"].values()]),
+             ms=pool["ms"], kernel_ms=pool["ms"],
              plain_ms=pool["plain_ms"], bound_ms=pool["bound_ms"],
              bound_by=pool["bound_by"], library_ms=pool["library_ms"],
              library=pool["library"],
@@ -1658,7 +2029,18 @@ def main():
                        "step (the stem pool's H and W axes), bfloat16",
                  **{k: r50[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms",
-                                        "library", "rows")})),
+                                        "library", "rows")}),
+             sp_launches={
+                 name: dict(
+                     shape=f"sum over the launches of one full-width {name} "
+                           f"step at shapes the unsharded step does not "
+                           f"take (halo'd blocks, lo = 0, or a T / H chunk), "
+                           f"bfloat16, exact in bfloat16 and float32",
+                     **{k: v[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "library", "rows",
+                                          "launches_per_step")})
+                 for name, v in sp["pool"].items()}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

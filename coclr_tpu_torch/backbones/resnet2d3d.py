@@ -16,7 +16,13 @@ statistics are float32. The stem's max pool is the separable pool whose
 backward is the pool1d_bwd kernel. Convolutions are initialized kaiming
 normal with fan_out (models/encoder.py init_backbone_).
 
-The JAX module's sequence-parallel branches (`sp_axis`) are not ported.
+Sequence parallelism (`sp`, ops/seqpar.py) as in S3D: the stem (T pad 2,
+H pad 3, stride 2: the local T and H chunks must be even), the 3D blocks'
+(3,1,1) conv1, every (1,3,3) conv2 and the stem pool take halos of their
+pad widths; the stride-2 1x1x1 downsample convs tile without one; the
+BatchNorms average their means over the members; and where a stride-2 H
+site no longer tiles the local H chunk the full H is gathered once
+(s3d.py degrade_h).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 from torch import nn
 
 from coclr_tpu_torch.backbones.norm import FoldedBatchNorm, bn_relu
-from coclr_tpu_torch.backbones.s3d import _conv
+from coclr_tpu_torch.backbones.s3d import _conv, degrade_h
 from coclr_tpu_torch.kernels.pool import max_pool_3d
 
 EXPANSION = 4
@@ -68,16 +74,16 @@ class Bottleneck(nn.Module):
         self.use_final_relu = use_final_relu
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
         d = self.dtype
-        h = bn_relu(self.bn1, _conv(self.conv1, x, d))
-        h = bn_relu(self.bn2, _conv(self.conv2, h, d))
-        h = self.bn3(_conv(self.conv3, h, d))  # no ReLU before the sum
+        h = bn_relu(self.bn1, _conv(self.conv1, x, d, sp), sp)
+        h = bn_relu(self.bn2, _conv(self.conv2, h, d, sp), sp)
+        h = self.bn3(_conv(self.conv3, h, d), sp)  # no ReLU before the sum
         if self.downsample is None:
             residual = x
         else:
             conv, bn = self.downsample
-            residual = bn(_conv(conv, x, d))
+            residual = bn(_conv(conv, x, d, sp), sp)
         out = h + residual.to(h.dtype)
         if self.use_final_relu:
             out = torch.relu(out)
@@ -91,9 +97,10 @@ class ResNet2d3d(nn.Module):
 
     def __init__(self, blocks_3d: Sequence[bool] = (False, False, True, True),
                  layers: Sequence[int] = (3, 4, 6, 3), input_channel: int = 3,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, sp=None):
         super().__init__()
         self.dtype = dtype
+        self.sp = sp
         self.conv1 = _conv3d(input_channel, 64, (5, 7, 7), (2, 2, 2), (2, 3, 3))
         self.bn1 = FoldedBatchNorm(64, dtype=dtype)
         in_planes = 64
@@ -109,20 +116,28 @@ class ResNet2d3d(nn.Module):
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
 
     def forward(self, x):
-        x = bn_relu(self.bn1, _conv(self.conv1, x, self.dtype))
-        x = max_pool_3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = layer(x)
+        sp = self.sp
+        x = bn_relu(self.bn1, _conv(self.conv1, x, self.dtype, sp), sp)
+        x, sp = degrade_h(x, sp)
+        x = max_pool_3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1), sp)
+        for li, layer in enumerate((self.layer1, self.layer2, self.layer3,
+                                    self.layer4)):
+            if li > 0:  # layers 2-4 open with a spatial stride of 2
+                x, sp = degrade_h(x, sp)
+            for block in layer:
+                x = block(x, sp)
         return torch.relu(x)
 
 
-def r2d3d50(input_channel: int = 3, dtype=torch.bfloat16) -> ResNet2d3d:
+def r2d3d50(input_channel: int = 3, dtype=torch.bfloat16,
+            sp=None) -> ResNet2d3d:
     """CVRL ResNet-50: 2D, 2D, 3D, 3D bottlenecks."""
     return ResNet2d3d((False, False, True, True), (3, 4, 6, 3), input_channel,
-                      dtype)
+                      dtype, sp)
 
 
-def r3d50(input_channel: int = 3, dtype=torch.bfloat16) -> ResNet2d3d:
+def r3d50(input_channel: int = 3, dtype=torch.bfloat16,
+          sp=None) -> ResNet2d3d:
     """ResNet3D-50: 3D bottlenecks in every layer."""
     return ResNet2d3d((True, True, True, True), (3, 4, 6, 3), input_channel,
-                      dtype)
+                      dtype, sp)

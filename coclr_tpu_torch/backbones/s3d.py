@@ -11,6 +11,15 @@ Layout is NCDHW. Convolutions compute in `dtype` (bfloat16 on the card) from
 float32 parameters; BatchNorm statistics are float32. Conv weights are
 initialized Normal(0, 0.01), BN weight 1 and bias 0, as the reference does.
 Max pools are separable 1-D pools whose backward is the pool1d_bwd kernel.
+
+Sequence parallelism (ops/seqpar.py): `S3D(sp=...)` holds the spec and
+passes it down through each module's forward. A conv or pool whose kernel
+spans a sharded T or H axis takes a halo of its pad width and runs
+unpadded there (the local chunk must divide by its stride); BatchNorm and
+self-gating average their means over the members. Where a stride-2 H site
+no longer tiles the local H chunk, the forward gathers the full H once and
+runs the later blocks without the H axis (`degrade_h`), so any img_dim
+works at any sph.
 """
 
 from __future__ import annotations
@@ -23,15 +32,36 @@ from torch import nn
 
 from coclr_tpu_torch.backbones.norm import FoldedBatchNorm, bn_relu
 from coclr_tpu_torch.kernels.pool import max_pool_3d
+from coclr_tpu_torch.ops.seqpar import (drop_h, gather_h, halo, sp_axes,
+                                        sp_pmean)
 
 
 def _triple(v) -> Tuple[int, int, int]:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
 
 
-def _conv(conv: nn.Conv3d, x, dtype):
+def _conv(conv: nn.Conv3d, x, dtype, sp=None):
+    """`conv` in `dtype`; under `sp` its T and H pads become halos where its
+    kernel or pad spans a sharded axis (ops/seqpar.py)."""
+    pads = list(conv.padding)
+    for i, group in enumerate((sp_axes(sp).t, sp_axes(sp).h)):
+        if group is None or (conv.kernel_size[i] == 1 and pads[i] == 0):
+            continue
+        if x.shape[i + 2] % conv.stride[i]:
+            raise ValueError(f"the local chunk {x.shape[i + 2]} (dim {i + 2}) "
+                             f"does not divide by the conv stride "
+                             f"{conv.stride[i]} under sequence parallelism")
+        x = halo(x, pads[i], pads[i], group, i + 2)
+        pads[i] = 0
     return F.conv3d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
-                    conv.padding)
+                    tuple(pads))
+
+
+def run(seq: nn.Sequential, x, sp):
+    """The modules of `seq` in order, each given the spec `sp`."""
+    for mod in seq:
+        x = mod(x, sp)
+    return x
 
 
 class BasicConv3d(nn.Module):
@@ -45,8 +75,8 @@ class BasicConv3d(nn.Module):
         self.bn = FoldedBatchNorm(out_planes, dtype=dtype)
         self.dtype = dtype
 
-    def forward(self, x):
-        return bn_relu(self.bn, _conv(self.conv, x, self.dtype))
+    def forward(self, x, sp=None):
+        return bn_relu(self.bn, _conv(self.conv, x, self.dtype, sp), sp)
 
 
 class STConv3d(nn.Module):
@@ -66,9 +96,9 @@ class STConv3d(nn.Module):
         self.bn2 = FoldedBatchNorm(out_planes, dtype=dtype)
         self.dtype = dtype
 
-    def forward(self, x):
-        x = bn_relu(self.bn1, _conv(self.conv1, x, self.dtype))
-        return bn_relu(self.bn2, _conv(self.conv2, x, self.dtype))
+    def forward(self, x, sp=None):
+        x = bn_relu(self.bn1, _conv(self.conv1, x, self.dtype, sp), sp)
+        return bn_relu(self.bn2, _conv(self.conv2, x, self.dtype, sp), sp)
 
 
 class SelfGating(nn.Module):
@@ -79,9 +109,9 @@ class SelfGating(nn.Module):
         super().__init__()
         self.fc = nn.Linear(input_dim, input_dim)
 
-    def forward(self, x):
+    def forward(self, x, sp=None):
         xf = x.to(torch.float32)
-        w = torch.sigmoid(self.fc(xf.mean(dim=(2, 3, 4))))
+        w = torch.sigmoid(self.fc(sp_pmean(xf.mean(dim=(2, 3, 4)), sp)))
         return (w[:, :, None, None, None] * xf).to(x.dtype)
 
 
@@ -93,8 +123,8 @@ class MaxPool3d(nn.Module):
         super().__init__()
         self.window, self.strides, self.padding = window, strides, padding
 
-    def forward(self, x):
-        return max_pool_3d(x, self.window, self.strides, self.padding)
+    def forward(self, x, sp=None):
+        return max_pool_3d(x, self.window, self.strides, self.padding, sp)
 
 
 class SepInception(nn.Module):
@@ -120,24 +150,39 @@ class SepInception(nn.Module):
             self.gating_b2 = SelfGating(b2b)
             self.gating_b3 = SelfGating(b3b)
 
-    def forward(self, x):
-        xs = [self.branch0(x), self.branch1(x), self.branch2(x), self.branch3(x)]
+    def forward(self, x, sp=None):
+        xs = [run(branch, x, sp) for branch in
+              (self.branch0, self.branch1, self.branch2, self.branch3)]
         if self.gating:
             gates = (self.gating_b0, self.gating_b1, self.gating_b2,
                      self.gating_b3)
-            xs = [gate(v) for gate, v in zip(gates, xs)]
+            xs = [gate(v, sp) for gate, v in zip(gates, xs)]
         return torch.cat(xs, dim=1)
+
+
+def degrade_h(x, sp):
+    """Before a stride-2 H site: where the local H chunk no longer tiles the
+    stride, gather the full H once and drop the H axis from the spec of
+    every later module (ops/seqpar.py gather_h). Returns (x, sp)."""
+    h = sp_axes(sp).h
+    if h is None or x.shape[3] % 2 == 0:
+        return x, sp
+    return gather_h(x, h), drop_h(sp)
 
 
 class S3D(nn.Module):
     """S3D backbone (s3dg.py S3D). Input [B, C, T, H, W]; output
-    [B, 1024, T/8 (T/4 if slow), H/32, W/32]."""
+    [B, 1024, T/8 (T/4 if slow), H/32, W/32]. Under sequence parallelism
+    (`sp`) the input is this member's T and H chunk: the local T must divide
+    by the total temporal stride (8, 4 if slow) and the local H be even."""
 
     def __init__(self, input_channel: int = 3, gating: bool = False,
-                 slow: bool = False, dtype=torch.bfloat16):
+                 slow: bool = False, dtype=torch.bfloat16, sp=None):
         super().__init__()
         d = dtype
         self.dtype = dtype
+        self.sp = sp
+        self.slow = slow
         self.Conv_1a = STConv3d(input_channel, 64, 7, (1 if slow else 2, 2), 3,
                                 dtype=d)
         self.block1 = nn.Sequential(self.Conv_1a)
@@ -168,7 +213,18 @@ class S3D(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        for block in (self.block1, self.block2, self.block3, self.block4,
-                      self.block5):
-            x = block(x)
+        sp = self.sp
+        t, h = sp_axes(sp).t, sp_axes(sp).h
+        div = 4 if self.slow else 8
+        if t is not None and x.shape[2] % div:
+            raise ValueError(f"sequence-parallel S3D needs the local T chunk "
+                             f"({x.shape[2]}) divisible by its total temporal "
+                             f"stride {div}")
+        if h is not None and x.shape[3] % 2:
+            raise ValueError(f"spatially sequence-parallel S3D needs an even "
+                             f"local H chunk ({x.shape[3]}) for its stem")
+        x = run(self.block1, x, sp)
+        for block in (self.block2, self.block3, self.block4, self.block5):
+            x, sp = degrade_h(x, sp)
+            x = run(block, x, sp)
         return x

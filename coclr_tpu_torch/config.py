@@ -58,6 +58,9 @@ class PretrainConfig:
     bn_shuffle: str = "gather"          # gather | alltoall | none
     dist_backend: str = "nccl"          # nccl | gloo (the CPU is always gloo)
     num_devices: int = 0                # 0, or the launcher's WORLD_SIZE
+    # sequence parallelism (ops/seqpar.py): ranks that share a clip's T / H
+    sp_size: int = 1
+    sph_size: int = 1
 
     @property
     def dtype(self):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from coclr_tpu_torch.kernels.build import CudaKernel, register
+from coclr_tpu_torch.ops.seqpar import halo, sp_axes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -162,14 +163,29 @@ def max_pool_1d(x, dim: int, k: int, s: int, lo: int):
     return _MaxPool1d.apply(x, dim, k, s, lo)
 
 
-def max_pool_3d(x, window, strides, padding):
+def max_pool_3d(x, window, strides, padding, sp=None):
     """Max pool over the (T, H, W) axes of [B, C, T, H, W] as up to three
     separable 1-D pools, in T, H, W order. The forward equals one 3-D pool;
     the backward routes ties first-per-axis (coclr_tpu/backbones/s3d.py
     max_pool_3d), not in cuDNN's 3-D window order. `padding` is symmetric
-    per axis."""
+    per axis.
+
+    Under sequence parallelism (`sp`, an ops/seqpar.py spec) a pool along a
+    sharded T or H axis runs unpadded (lo = 0) on the halo-extended local
+    block; the zeros at the global edges equal the -inf pad in value on
+    these post-ReLU inputs, and a gradient routed to such a zero is dropped
+    by the halo's backward, as one routed to a real zero is by the ReLU."""
+    groups = {2: sp_axes(sp).t, 3: sp_axes(sp).h}
     for dim, k, s, lo in zip((2, 3, 4), window, strides, padding):
         if k == 1 and s == 1 and lo == 0:
             continue
+        group = groups.get(dim)
+        if group is not None and (k > 1 or lo):
+            if x.shape[dim] % s:
+                raise ValueError(f"the local chunk {x.shape[dim]} (dim {dim})"
+                                 f" does not divide by the pool stride {s} "
+                                 "under sequence parallelism")
+            x = halo(x, lo, lo, group, dim)
+            lo = 0
         x = max_pool_1d(x, dim, k, s, lo)
     return x

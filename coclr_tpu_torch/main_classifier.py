@@ -13,9 +13,11 @@ with `--batch_size` per card, `--dist-backend` (nccl, or gloo when asked;
 the CPU is always gloo) and `--num_devices` (when set, it must equal
 WORLD_SIZE) acted on. The --test paths run in one process, as they do on
 one device in the JAX package, and refuse a launch of several. Accepted
-and ignored: `--gpu`, `--sp_size`, `--sph_size`, `--ckpt_format`, and
-reference flags with no effect there (`--num_seq`, `--num_fc`,
-`--eval_freq`, `--reset_lr`, `--cos`).
+and ignored: `--gpu`, `--ckpt_format`, reference flags with no effect
+there (`--num_seq`, `--num_fc`, `--eval_freq`, `--reset_lr`, `--cos`),
+and `--sp_size` / `--sph_size`: the classifier does not act on sequence
+parallelism yet (pretraining does, coclr_tpu_torch/main_nce.py), so a run
+with them is an unsharded run.
 
   train:      --train_what last|ft|all [--pretrain <pretrain .pth.tar>]
   retrieval:  --test <pretrain .pth.tar> --retrieval [--dirname feature]

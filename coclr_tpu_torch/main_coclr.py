@@ -5,10 +5,11 @@
 Takes the flags of the repository's main_coclr.py: `--topk`, `--reverse`
 and `--pretrain <to-train> <sampler>` (two `.pth.tar` files; `random random`
 trains from scratch). The data-parallel flags (`--dist-backend`,
-`--bn_shuffle`, `--num_devices`) and `--profile_steps N` (a trace of N
-steps into <exp>/trace) are acted on and the rest accepted and ignored, as
-in main_nce (its docstring lists them: `--dcn_size`,
-`--sp_size` and `--sph_size` among them). `--device` picks the device:
+`--bn_shuffle`, `--num_devices`), the sequence-parallel `--sp_size` and
+`--sph_size` (the RGB and flow chunks of a member, and the frozen
+sampler's forward, are sharded alike) and `--profile_steps N` (a trace of
+N steps into <exp>/trace) are acted on and the rest accepted and ignored,
+as in main_nce (its docstring lists them). `--device` picks the device:
 cuda (the default) or cpu.
 """
 

@@ -12,12 +12,19 @@ batch_size x ranks), `--dist-backend` (nccl, or gloo when asked; the CPU is
 always gloo), `--bn_shuffle` (gather, alltoall or none) and
 `--num_devices` (when set, it must equal WORLD_SIZE); `--profile_steps N`
 traces N steps of the first epoch into <exp>/trace (a gzipped Chrome trace
-per rank; train/pretrain.py). Accepted and ignored:
+per rank; train/pretrain.py). `--sp_size S` and `--sph_size H` shard each
+clip's T axis over S ranks and its H axis over H ranks (sequence
+parallelism, ops/seqpar.py): S x H must divide the ranks, and the global
+batch is then batch_size x ranks / (S x H):
+
+    torchrun --nproc_per_node N -m coclr_tpu_torch.main_nce --sp_size S \
+        [--sph_size H] [flags]
+
+Accepted and ignored:
 `--gpu`, `--world-size`, `--rank`, `--dist-url`,
 `--multiprocessing-distributed`, `--local_rank` (torchrun's environment
-gives them), the mesh and sequence-parallel knobs `--dcn_size`, `--sp_size`
-and `--sph_size`, `--multihost` and its flags, `--aug_backend`,
-`--aug_order`, `--ckpt_format` and `--reset_lr`.
+gives them), the mesh knob `--dcn_size`, `--multihost` and its flags,
+`--aug_backend`, `--aug_order`, `--ckpt_format` and `--reset_lr`.
 `build_parser(coclr=True)` gives the flags of main_coclr.py
 (coclr_tpu_torch/main_coclr.py).
 """
@@ -69,6 +76,11 @@ def build_parser(coclr: bool = False):
                         choices=['gather', 'none', 'alltoall'])
     parser.add_argument('--num_devices', default=0, type=int,
                         help='0, or the number of ranks (WORLD_SIZE)')
+    # sequence parallelism, acted on by the port (ops/seqpar.py)
+    parser.add_argument('--sp_size', default=1, type=int,
+                        help='ranks that share each clip\'s T axis')
+    parser.add_argument('--sph_size', default=1, type=int,
+                        help='ranks that share each clip\'s H axis')
     # accepted for CLI compatibility and ignored
     parser.add_argument('--gpu', default=None)
     parser.add_argument('--world-size', default=-1, type=int)
@@ -80,8 +92,6 @@ def build_parser(coclr: bool = False):
     parser.add_argument('--aug_backend', default='auto', type=str)
     parser.add_argument('--aug_order', default='shuffle', type=str)
     parser.add_argument('--dcn_size', default=1, type=int)
-    parser.add_argument('--sp_size', default=1, type=int)
-    parser.add_argument('--sph_size', default=1, type=int)
     parser.add_argument('--ckpt_format', default='flax', type=str)
     parser.add_argument('--multihost', action='store_true')
     parser.add_argument('--coordinator', default='', type=str)
@@ -131,7 +141,8 @@ def cfg_from_args(args):
         compute_dtype=args.compute_dtype,
         data_root=args.data_root, worker_mode=args.worker_mode,
         bn_shuffle=args.bn_shuffle, dist_backend=args.dist_backend,
-        num_devices=args.num_devices, profile_steps=args.profile_steps)
+        num_devices=args.num_devices, profile_steps=args.profile_steps,
+        sp_size=args.sp_size, sph_size=args.sph_size)
 
 
 def main(argv=None):

@@ -6,6 +6,11 @@ Conv3d(fs, dim, 1). The indices 0 to 4 are kept so the state_dict keys are
 the reference's (`0.<backbone>`, `2.weight`, `4.weight`); the forward takes
 the mean over T, H, W in float32 and runs the two 1x1x1 convs as float32
 matmuls on the pooled [B, fs] features, as the JAX package's Dense layers do.
+
+Under sequence parallelism (`sp`, ops/seqpar.py) the backbone runs on this
+member's T and H chunk and the pooled feature is the mean of the members'
+means (sp_pmean): every member holds the same feature, so the head and the
+MoCo state stay replicated across the members.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from coclr_tpu_torch.backbones import ResNet2d3d, select_backbone
+from coclr_tpu_torch.ops.seqpar import sp_pmean
 
 
 class ProjectionEncoder(nn.Sequential):
@@ -24,15 +30,17 @@ class ProjectionEncoder(nn.Sequential):
     [B, C, T, H, W]; returns UNNORMALIZED [B, dim] float32."""
 
     def __init__(self, network: str = "s3d", dim: int = 128,
-                 dtype=torch.bfloat16):
-        backbone, param = select_backbone(network, dtype=dtype)
+                 dtype=torch.bfloat16, sp=None):
+        backbone, param = select_backbone(network, dtype=dtype, sp=sp)
         fs = param["feature_size"]
         super().__init__(backbone, nn.AdaptiveAvgPool3d((1, 1, 1)),
                          nn.Conv3d(fs, fs, 1), nn.ReLU(), nn.Conv3d(fs, dim, 1))
+        self.sp = sp
 
     def features(self, x):
         """Pooled backbone features [B, feature_size], float32."""
-        return self[0](x).to(torch.float32).mean(dim=(2, 3, 4))
+        return sp_pmean(self[0](x).to(torch.float32).mean(dim=(2, 3, 4)),
+                        self.sp)
 
     def forward(self, x):
         h = F.relu(F.linear(self.features(x), self[2].weight.flatten(1),

@@ -23,6 +23,10 @@ a permutation within the one BN batch changes neither the BN statistics
 nor the unshuffled keys (coclr_tpu/models/moco.py encode_keys); alltoall
 with a batch that the ranks do not divide falls back to gather
 (`shuffle_mode`).
+
+Under sequence parallelism the shuffle and the enqueue run over the data
+group (parallel/dist.py), the ranks that hold the same T and H chunk of
+different clips, never over the members that share a clip.
 """
 
 from __future__ import annotations
@@ -53,18 +57,21 @@ class MoCo(nn.Module):
     The CoCLR sampler has no gradients and stays in eval mode whatever
     `train()` is asked for: the JAX package applies it with train=False, so
     its BatchNorm normalises with, and never updates, its running
-    statistics."""
+    statistics.
+
+    `sp`: the sequence-parallel spec of the three encoders (ops/seqpar.py);
+    the members that share a clip hold identical keys, queues and state."""
 
     def __init__(self, network: str = "s3d", dim: int = 128, K: int = 2048,
                  dtype=torch.bfloat16, gen: torch.Generator = None,
-                 variant: str = "infonce"):
+                 variant: str = "infonce", sp=None):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown MoCo variant {variant!r}")
         if gen is None:
             gen = torch.Generator().manual_seed(0)
         self.variant = variant
-        self.encoder_q = ProjectionEncoder(network, dim, dtype)
+        self.encoder_q = ProjectionEncoder(network, dim, dtype, sp)
         init_params_(self.encoder_q, gen)
         self.encoder_k = copy.deepcopy(self.encoder_q)
         self.encoder_k.requires_grad_(False)
@@ -79,7 +86,7 @@ class MoCo(nn.Module):
                                  torch.full((K,), -1, dtype=torch.long))
             self.register_buffer(
                 "queue_second", l2_normalize(torch.randn(K, dim, generator=gen)))
-            self.sampler = ProjectionEncoder(network, dim, dtype)
+            self.sampler = ProjectionEncoder(network, dim, dtype, sp)
             init_params_(self.sampler, gen)
             self.sampler.requires_grad_(False)
             self.sampler.eval()

@@ -189,16 +189,44 @@ def augment_batch(batch, params: Dict[str, torch.Tensor], dtype=torch.bfloat16):
     return out
 
 
+def chunk_frames(params: Dict[str, torch.Tensor], frames: int, f_idx):
+    """Draws made for clip units of `frames` frames, restricted to the local
+    frames whose global indices are `f_idx` ([L] on the draws' device): the
+    per-frame gray channel is sliced, every other draw is per clip."""
+    out = dict(params)
+    out["ch"] = params["ch"].view(-1, frames)[:, f_idx].reshape(-1)
+    return out
+
+
 def make_pretrain_preprocess(cfg):
-    """preprocess_fn(batch, gen) for the pretrain step: draws with `gen`,
-    then augments and normalizes the clips in cfg.dtype (augment_batch)."""
+    """preprocess_fn(batch, gen, sp_ctx=None) for the pretrain step: draws
+    with `gen`, then augments and normalizes the clips in cfg.dtype
+    (augment_batch).
+
+    `sp_ctx = (t_global, offset)`: temporal sequence parallelism, the batch
+    holds frames [offset, offset + T_loc) of clips of t_global frames. The
+    draws are made for the whole clips, so `gen`'s stream is the unsharded
+    one and the members of a data shard, seeded alike, draw alike; the
+    per-frame gray channel is then taken at the global index of each local
+    frame (chunk_frames). With RGB + flow the local frames [0, T_loc) are
+    global frames offset + i of the doubled stream and [T_loc, 2 T_loc)
+    are global frames t_global + offset + i: their chunks are not
+    contiguous in it (coclr_tpu/ops/augment.py make_pretrain_preprocess)."""
     dtype = cfg.dtype
 
-    def fn(batch, gen: torch.Generator):
+    def fn(batch, gen: torch.Generator, sp_ctx=None):
         # the draws cover a clip unit: T frames, or 2T for RGB + flow
-        frames = (batch["seq"].shape[2] if "seq" in batch else
-                  batch["seq_rgb"].shape[2] + batch["seq_flow"].shape[2])
+        two = "seq" not in batch
+        t = (batch["seq"] if not two else batch["seq_rgb"]).shape[2]
+        if sp_ctx is None:
+            return augment_batch(batch, draw_aug_params(
+                gen, batch["aug_base"], 2 * t if two else t), dtype)
+        t_glob, off = sp_ctx
+        idx = off + torch.arange(t, device=batch["aug_base"].device)
+        if two:
+            idx = torch.cat([idx, t_glob + idx])
+        frames = 2 * t_glob if two else t_glob
         params = draw_aug_params(gen, batch["aug_base"], frames)
-        return augment_batch(batch, params, dtype)
+        return augment_batch(batch, chunk_frames(params, frames, idx), dtype)
 
     return fn

@@ -25,6 +25,21 @@ a bucketed all-reduce of the gradients, overlapped with the backward, in
 place of the JAX step's pmean). Each rank keeps its own BatchNorm running
 statistics (broadcast_buffers off), as each device of the JAX mesh does;
 rank 0's are the ones checkpointed.
+
+Sequence parallelism (`--sp_size`, `--sph_size`; ops/seqpar.py): the ranks
+form a (data, sp, sph) grid, sph innermost, as the JAX package's mesh
+(coclr_tpu/parallel/mesh.py): world rank (d * sp + t) * sph + h. The World
+then carries a group per role, built in the same order on every rank
+(`with_seqpar`):
+
+- the sp group (d, *, h): the temporal halos;
+- the sph group (d, t, *): the spatial halos and gather_h;
+- the sequence group (d, *, *): sp_pmean over both axes;
+- the data group (*, t, h): the key shuffle and the gathered enqueue, over
+  the members that hold the same T and H chunk of different clips;
+- `group`, the world: the gradient all-reduce and the metrics.
+
+With sp = sph = 1 no group is made and the data group is the world.
 """
 
 from __future__ import annotations
@@ -51,10 +66,46 @@ class World:
     device: torch.device
     group: Any
     host_group: Any
+    # sequence parallelism (with_seqpar); a group of one rank is None
+    sp: int = 1
+    sph: int = 1
+    data_group: Any = None
+    sp_group: Any = None
+    sph_group: Any = None
+    seq_group: Any = None
 
     @property
     def primary(self) -> bool:
         return self.rank == 0
+
+    @property
+    def data_rank(self) -> int:
+        """d: which data shard this rank's clips belong to."""
+        return self.rank // (self.sp * self.sph)
+
+    @property
+    def n_data(self) -> int:
+        return self.size // (self.sp * self.sph)
+
+    @property
+    def sp_rank(self) -> int:
+        """t: which T chunk of its clips this rank holds."""
+        return self.rank // self.sph % self.sp
+
+    @property
+    def sph_rank(self) -> int:
+        """h: which H chunk of its clips this rank holds."""
+        return self.rank % self.sph
+
+    @property
+    def seqpar(self):
+        """The backbones' ops/seqpar.py spec, or None without sequence
+        parallelism."""
+        from coclr_tpu_torch.ops.seqpar import SPAxes
+
+        if self.sp_group is None and self.sph_group is None:
+            return None
+        return SPAxes(t=self.sp_group, h=self.sph_group, both=self.seq_group)
 
 
 _WORLD: Optional[World] = None
@@ -100,7 +151,8 @@ def initialize(device: torch.device, backend: str, rank: int, size: int,
         raise RuntimeError(f"{backend} all_reduce over {size} ranks gave "
                            f"{probe.item()}")
     _WORLD = World(rank=rank, size=size, device=device,
-                   group=dist.group.WORLD, host_group=host)
+                   group=dist.group.WORLD, host_group=host,
+                   data_group=dist.group.WORLD)
     setup_print(rank == 0)
     print(f"=> data parallel: {size} rank(s) over {backend}, this is rank "
           f"{rank} on {device}", flush=True)
@@ -108,10 +160,12 @@ def initialize(device: torch.device, backend: str, rank: int, size: int,
 
 
 def maybe_initialize(device: torch.device, backend: str = "nccl",
-                     num_devices: int = 0) -> Optional[World]:
+                     num_devices: int = 0, sp_size: int = 1,
+                     sph_size: int = 1) -> Optional[World]:
     """The World of a launched process (see launched), or None for one
     plain process. `num_devices`, when set, must equal the world size (1
-    without a launcher)."""
+    without a launcher); sp_size x sph_size must divide it, and the World
+    then carries the sequence-parallel groups (with_seqpar)."""
     if _WORLD is not None:
         size = _WORLD.size
     else:
@@ -120,12 +174,61 @@ def maybe_initialize(device: torch.device, backend: str = "nccl",
         raise ValueError(f"--num_devices {num_devices} but the launcher "
                          f"started {size} process(es): one process drives "
                          "one card; set torchrun --nproc_per_node instead")
-    if _WORLD is not None:
-        return _WORLD
-    if not launched():
+    sp_size, sph_size = sp_size or 1, sph_size or 1
+    if sp_size < 1 or sph_size < 1 or size % (sp_size * sph_size):
+        raise ValueError(f"--sp_size {sp_size} x --sph_size {sph_size} does "
+                         f"not divide the {size} process(es) of the launch")
+    if _WORLD is None and not launched():
         pick_backend(device, backend)
         return None
-    return initialize(device, backend, int(os.environ["RANK"]), size)
+    world = _WORLD if _WORLD is not None else initialize(
+        device, backend, int(os.environ["RANK"]), size)
+    return with_seqpar(world, sp_size, sph_size)
+
+
+_SEQPAR = {}
+
+
+def with_seqpar(world: World, sp: int, sph: int) -> World:
+    """`world` with the groups of a (data, sp, sph) grid (module
+    docstring); `world` itself for sp = sph = 1. Every rank must make the
+    same calls in the same order (each new group is a collective over the
+    world); the groups of a grid are made once and kept."""
+    if sp * sph == 1:
+        return world
+    if world.size % (sp * sph):
+        raise ValueError(f"sp {sp} x sph {sph} does not divide the world "
+                         f"of {world.size}")
+    key = (world.rank, world.size, sp, sph)
+    if key not in _SEQPAR:
+        n_data = world.size // (sp * sph)
+        at = lambda d, t, h: (d * sp + t) * sph + h
+        layouts = {
+            "sp_group": [[at(d, t, h) for t in range(sp)]
+                         for d in range(n_data) for h in range(sph)],
+            "sph_group": [[at(d, t, h) for h in range(sph)]
+                          for d in range(n_data) for t in range(sp)],
+            "seq_group": [[at(d, t, h) for t in range(sp) for h in range(sph)]
+                          for d in range(n_data)],
+            "data_group": [[at(d, t, h) for d in range(n_data)]
+                           for t in range(sp) for h in range(sph)],
+        }
+        if sp == 1 or sph == 1:  # sp_pmean reduces over the one axis
+            del layouts["seq_group"]
+        backend = dist.get_backend(world.group)
+        groups = dict(sp_group=None, sph_group=None, seq_group=None)
+        for role, lists in layouts.items():
+            # an axis of one rank needs no group (the identity); the data
+            # group keeps its group of one, so that the step never takes
+            # the world for it
+            if len(lists[0]) == 1 and role != "data_group":
+                continue
+            for ranks in lists:
+                g = dist.new_group(ranks, backend=backend)
+                if world.rank in ranks:
+                    groups[role] = g
+        _SEQPAR[key] = dataclasses.replace(world, sp=sp, sph=sph, **groups)
+    return _SEQPAR[key]
 
 
 def size_of(group) -> int:

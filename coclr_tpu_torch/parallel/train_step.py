@@ -28,6 +28,18 @@ ranks, and the enqueue writes the keys, labels, sampler keys and video
 names of every rank in rank order. CoCLR's masks still come from this
 rank's rows against the queues as they were before the enqueue, and
 `drop_self` is this rank's own draw.
+
+Under sequence parallelism (ops/seqpar.py) the clips are this member's T
+and H chunk, and the encoders are built with the spec. The key shuffle and
+the enqueue run over the data group (`data_group`), the ranks that hold
+the same chunk of different clips. The gradients are averaged over every
+rank by DistributedDataParallel over the world group: the one uniform mean
+of the JAX step's pmean over all mesh axes (coclr_tpu/parallel/
+train_step.py), exact because a backbone member's gradient comes out sp x
+its share and the head's is replicated (ops/seqpar.py). DDP is kept over a
+separate all-reduce after the backward because it overlaps the reduction
+with the backward, as the data-parallel path already does. The metrics are
+averaged over the world, where the members of a clip hold the same ones.
 """
 
 from __future__ import annotations
@@ -73,7 +85,7 @@ def _encode_keys(model, x2, group, perm, bn_shuffle):
 
 def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
                   drop_self: bool = True, update: bool = True, ddp=None,
-                  perm=None):
+                  perm=None, data_group=None):
     """One step of cfg.model on an augmented batch: {'seq': [B, 2, T, H, W,
     C]} (+ 'label' for UberNCE), {'seq_rgb', 'seq_flow', 'vname'} for
     CoCLR, or for InfoNCE the clips tensor alone. Updates model and
@@ -85,9 +97,12 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
     process group, or None for one process; `perm`: what the key shuffle
     needs with 2 or more ranks: the shared permutation of the global key
     batch (moco.draw_shuffle) for gather, this rank's pair of local
-    permutations (moco.draw_shuffle_alltoall) for alltoall."""
+    permutations (moco.draw_shuffle_alltoall) for alltoall;
+    `data_group`: the group of the key shuffle and the enqueue under
+    sequence parallelism (World.data_group), else ddp's process group."""
     variant = model.variant
-    group = None if ddp is None else ddp.process_group
+    world = None if ddp is None else ddp.process_group
+    group = world if data_group is None else data_group
     if not isinstance(batch, dict):
         batch = {"seq": batch}
     if variant == "coclr":
@@ -137,7 +152,7 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
     if variant == "infonce":
         metrics["top1"], metrics["top5"] = moco.topk_accuracy(logits, zeros)
         moco.dequeue_and_enqueue(model.queue, model.queue_ptr, k, group=group)
-        return all_mean_dict(metrics, group)
+        return all_mean_dict(metrics, world)
     metrics["top1"], metrics["top5"] = moco.mask_accuracy(logits, mask)
     metrics["top1_self"], metrics["top5_self"] = moco.topk_accuracy(logits, zeros)
     if variant == "ubernce":
@@ -152,4 +167,4 @@ def pretrain_step(model: moco.MoCo, optimizer, batch, lr: float, cfg, *,
                                  queue_second=model.queue_second,
                                  keys_second=kf, queue_vname=model.queue_vname,
                                  vnames=batch["vname"], group=group)
-    return all_mean_dict(metrics, group)
+    return all_mean_dict(metrics, world)

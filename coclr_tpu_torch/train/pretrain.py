@@ -16,6 +16,17 @@ rank. Only rank 0 reads the init files (the model,
 the optimizer state and the loop position are then broadcast from it) and
 writes checkpoints and logs; the preemption flag is agreed once per step.
 
+Sequence parallelism (`sp_size`, `sph_size`; ops/seqpar.py,
+parallel/dist.py): the ranks form a (data, sp, sph) grid, and the
+`sp_size x sph_size` members of a data shard share its clips. The loader
+shards by data rank, so the members read the same clips; each member's T
+chunk is cut on the host before the upload, so the host-to-device bytes
+scale 1 / sp; the augmentation runs on that chunk at full H
+(make_pretrain_preprocess's sp_ctx), and each member then keeps its H
+rows. The step's draws, the key shuffle's permutations and CoCLR's
+self-drop are seeded by the data rank, so the members of a shard draw
+alike; the global batch is batch_size x data ranks.
+
 `profile_steps` N > 0 traces N steps of the first epoch with torch.profiler
 into <exp>/trace (utils/profiling.py; one gzipped Chrome trace per rank),
 from step 10 when the epoch is long enough, else as late as fits, as the
@@ -175,9 +186,30 @@ SHUFFLE_SEED = 1 << 62
 
 
 def step_seed(seed: int, iteration: int, rank: int = 0) -> int:
-    """The seed of a rank's draws at `iteration` (rank 0: the one-process
-    seed)."""
+    """The seed of a data rank's draws at `iteration` (rank 0: the
+    one-process seed)."""
     return seed * 1_000_003 + iteration + rank * RANK_SEED_STRIDE
+
+
+CLIP_DIMS = 3  # clip leaves [B, 2, T, H, W, 3] have at least this many dims
+
+
+def member_chunk(batch, dim: int, index: int, parts: int):
+    """The clip leaves of `batch` (numpy arrays or tensors) cut to chunk
+    `index` of `parts` equal chunks along `dim`; other leaves as they are."""
+    if parts == 1:
+        return batch
+    out = dict(batch)
+    for key, val in batch.items():
+        if val.ndim >= CLIP_DIMS:
+            size = val.shape[dim] // parts
+            if size * parts != val.shape[dim]:
+                raise ValueError(f"{key}: an extent of {val.shape[dim]} on dim "
+                                 f"{dim} does not split into {parts} chunks")
+            cut = (slice(None),) * dim + (slice(index * size,
+                                                (index + 1) * size),)
+            out[key] = val[cut]
+    return out
 
 
 def init_model(model, optimizer, cfg, world):
@@ -237,21 +269,30 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     (model, optimizer, info); info["trace"] is the --profile_steps trace
     file, or None."""
     device = prepare_run(device)
-    world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices)
-    rank, ranks = (world.rank, world.size) if world else (0, 1)
-    primary = rank == 0
-    shuffle = shuffle_mode(cfg.bn_shuffle, cfg.batch_size, ranks)
+    world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices,
+                                  cfg.sp_size, cfg.sph_size)
+    ranks = world.size if world else 1
+    primary = world is None or world.primary
+    # the data shards: every rank of plain data parallelism, or the grid's
+    # data axis under sequence parallelism
+    rank, n_data = (world.data_rank, world.n_data) if world else (0, 1)
+    sp = world.seqpar if world else None
+    shuffle = shuffle_mode(cfg.bn_shuffle, cfg.batch_size, n_data)
     is_coclr = cfg.model == "coclr"
-    global_batch = cfg.batch_size * ranks
+    global_batch = cfg.batch_size * n_data
     if cfg.moco_k % global_batch:
         raise ValueError(f"moco_k={cfg.moco_k} must be divisible by the "
                          f"global batch {global_batch}")
 
     print(f"=> creating {cfg.model} model with '{cfg.net}' backbone on "
-          f"{device}" + (f", {ranks} ranks" if world else ""))
+          f"{device}" + (f", {ranks} ranks" if world else "")
+          + (f" (sequence-parallel x{world.sp})" if sp and world.sp > 1
+             else "")
+          + (f" (spatial-sequence-parallel x{world.sph})"
+             if sp and world.sph > 1 else ""))
     model = MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype,
                  gen=torch.Generator().manual_seed(cfg.seed),
-                 variant=cfg.model).to(device)
+                 variant=cfg.model, sp=sp).to(device)
     model.train()
     optimizer = make_optimizer(cfg, model.encoder_q.parameters())
     preprocess = make_pretrain_preprocess(cfg)
@@ -267,7 +308,7 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
         loader = Loader(dataset, batch_size=global_batch,
                         num_workers=cfg.workers, seed=cfg.seed,
                         worker_mode=cfg.worker_mode,
-                        process_shard=(rank, ranks) if world else None)
+                        process_shard=(rank, n_data) if world else None)
 
     if primary:
         plotter = PlotterThread(os.path.join(img_path, "train"))
@@ -320,6 +361,12 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                     window = profiling.device_trace(
                         os.path.join(exp_path, "trace"), device)
                     window.__enter__()
+                sp_ctx = None
+                if sp is not None and world.sp > 1:  # this member's T chunk
+                    t_glob = next(v.shape[2] for v in batch.values()
+                                  if v.ndim >= CLIP_DIMS)
+                    sp_ctx = (t_glob, world.sp_rank * (t_glob // world.sp))
+                    batch = member_chunk(batch, 2, world.sp_rank, world.sp)
                 batch = upload(batch, device)
                 seed = step_seed(cfg.seed, iteration, rank)
                 gen.manual_seed(seed)
@@ -335,10 +382,15 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                                          + SHUFFLE_SEED)
                     perm = draw_shuffle_alltoall(perm_gen, cfg.batch_size)
                 with profiling.step_annotation("train", iteration):
+                    batch = preprocess(batch, gen, sp_ctx)
+                    if sp is not None:  # this member's H rows
+                        batch = member_chunk(batch, 3, world.sph_rank,
+                                             world.sph)
                     metrics = pretrain_step(
-                        model, optimizer, preprocess(batch, gen), lr, cfg,
+                        model, optimizer, batch, lr, cfg,
                         drop_self=drop_self, update=fill is None or fill.full,
-                        ddp=ddp, perm=perm)
+                        ddp=ddp, perm=perm,
+                        data_group=world.data_group if world else None)
                 if window is not None \
                         and idx == prof_at + cfg.profile_steps - 1:
                     trace = close_trace(window, cfg.profile_steps)

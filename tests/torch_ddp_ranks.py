@@ -1,5 +1,5 @@
-"""Rank processes for the port's data-parallel tests (tests/test_torch_ddp.py,
-tests/test_torch_cuda.py).
+"""Rank processes for the port's data- and sequence-parallel tests
+(tests/test_torch_ddp.py, tests/test_torch_seqpar.py, tests/test_torch_cuda.py).
 
 `RankPool(world, tmpdir)` spawns `world` processes that join one gloo
 process group (a file store under `tmpdir`) through
@@ -319,6 +319,183 @@ def task_run_pretrain(world, solo, *, cfg, workdir, batches=None,
     return out
 
 
+def _seq_world(world, sp, sph):
+    from coclr_tpu_torch.parallel import dist as pdist
+
+    return pdist.with_seqpar(world, sp, sph)
+
+
+def _member(x, world, t_dim, h_dim):
+    """This rank's T and H chunk of x (whole on every rank)."""
+    from coclr_tpu_torch.train.pretrain import member_chunk
+
+    out = member_chunk({"x": x}, t_dim, world.sp_rank, world.sp)["x"]
+    return member_chunk({"x": out}, h_dim, world.sph_rank, world.sph)["x"]
+
+
+def task_sp_prims(world, solo, *, sp, sph, x, cts, lo, hi):
+    """The ops/seqpar.py primitives named in cts on this rank's T and H
+    chunk of x [B, C, T, H, W] (the same x in every data shard) in a (data,
+    sp, sph) grid, the local loss sum(y * ct) with ct this rank's block of
+    cts[name] (the cotangent of the members' outputs concatenated along T
+    over sp and along H over sph), and its gradient: {name: (y, dx)}."""
+    import torch
+
+    from coclr_tpu_torch.ops import seqpar
+
+    w = _seq_world(world, sp, sph)
+    spec = w.seqpar
+    prims = {
+        "temporal_halo": lambda a: seqpar.temporal_halo(a, lo, hi, spec.t),
+        "spatial_halo": lambda a: seqpar.spatial_halo(a, lo, hi, spec.h),
+        "gather_h": lambda a: seqpar.gather_h(a, spec.h),
+        "sp_pmean": lambda a: seqpar.sp_pmean(a, spec),
+    }
+    out = {}
+    mine = _member(torch.from_numpy(x), w, 2, 3)
+    for name in cts:
+        a = mine.clone().requires_grad_(True)
+        y = prims[name](a)
+        # this member's block of the cotangent of the members' outputs
+        t_n, h_n = y.shape[2], y.shape[3]
+        ct = torch.from_numpy(cts[name][:, :, w.sp_rank * t_n:
+                                        (w.sp_rank + 1) * t_n,
+                                        w.sph_rank * h_n:
+                                        (w.sph_rank + 1) * h_n])
+        (y * ct).sum().backward()
+        out[name] = (y.detach().numpy(), a.grad.numpy())
+    return out
+
+
+def task_sp_encoder(world, solo, *, sp, sph, net, sd, x, train, dim):
+    """ProjectionEncoder(net) with the state dict sd on this rank's T and H
+    chunk of x [B, C, T, H, W] in a (data, sp, sph) grid (data shard 0
+    only; the others return None), train or eval mode, float32: the output, the state after the forward, the input
+    gradient and, on rank 0, the gradients of sum(out ** 2) averaged over
+    the members (the world-mean of a data shard; the same on every
+    member)."""
+    import torch
+
+    from coclr_tpu_torch.models.encoder import ProjectionEncoder
+    from coclr_tpu_torch.ops.seqpar import pmean_group, sp_pmean
+
+    w = _seq_world(world, sp, sph)
+    if w.data_rank:  # the members of one data shard suffice
+        return None
+    enc = ProjectionEncoder(net, dim, torch.float32, sp=w.seqpar)
+    enc.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in sd.items()}, strict=True)
+    enc.train(train)
+    mine = _member(torch.from_numpy(x), w, 2, 3).clone().requires_grad_(True)
+    out = enc(mine)
+    (out ** 2).sum().backward()
+    assert pmean_group(w.seqpar) is not None
+    grads = {n: sp_pmean(p.grad, w.seqpar).numpy()
+             for n, p in enc.named_parameters()}
+    if world.rank:
+        grads = None
+    return {"out": out.detach().numpy(), "state": _np_state(enc),
+            "grads": grads, "dx": mine.grad.numpy()}
+
+
+def task_sp_pretrain(world, solo, *, sp, sph, variant, sd, cfg, batches,
+                     perms, drops, lr):
+    """Steps of `variant` in a (data, sp, sph) grid from state dict sd:
+    each rank on its data shard's block of every global batch, cut to its
+    T and H chunk, with the gather permutation perms[i] and its data
+    shard's self-drop drops[i][d]. Returns the metrics, the state and
+    Adam's first moments after each step."""
+    import torch
+
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.models.moco import MoCo
+    from coclr_tpu_torch.parallel import dist as pdist
+    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+
+    w = _seq_world(world, sp, sph)
+    cfg = PretrainConfig(**cfg)
+    model = MoCo(cfg.net, cfg.moco_dim, cfg.moco_k, cfg.dtype, variant=variant,
+                 sp=w.seqpar)
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()}, strict=True)
+    model.train()
+    opt = make_optimizer(cfg, model.encoder_q.parameters())
+    ddp = pdist.wrap(model.encoder_q, w)
+    metrics, states, moments = [], [], []
+    for batch, perm, drop in zip(batches, perms, drops):
+        b = len(next(iter(batch.values()))) // w.n_data
+        d = w.data_rank
+        mine = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
+        mine = {k: _member(v, w, 2, 3) if v.ndim >= 3 else v
+                for k, v in mine.items()}
+        m = pretrain_step(model, opt, _tensors(mine, "cpu"), lr, cfg,
+                          drop_self=drop[d], update=True, ddp=ddp,
+                          perm=torch.from_numpy(perm),
+                          data_group=w.data_group)
+        metrics.append({k: float(v) for k, v in m.items()})
+        states.append(_np_state(model))
+        moments.append({"encoder_q." + n: opt.state[p]["exp_avg"].numpy()
+                        .copy() for n, p in model.encoder_q.named_parameters()})
+    return {"metrics": metrics, "states": states, "moments": moments}
+
+
+def task_sp_run_pretrain(world, solo, *, cfg, workdir, batches):
+    """run_pretrain in `workdir` with cfg's sp_size and sph_size, this rank
+    fed its data shard's `batches[d]`; records the seed of each step's
+    generator, the self-drop, the key shuffle's permutation and the clips
+    the step got. Returns them with the model's digest and the
+    sequence-parallel line it printed."""
+    import contextlib
+    import hashlib
+    import io
+
+    from coclr_tpu_torch.config import PretrainConfig
+    from coclr_tpu_torch.train import pretrain
+
+    os.chdir(workdir)
+    seen = {"seeds": [], "drops": [], "perms": [], "shapes": []}
+    make_pre, step = pretrain.make_pretrain_preprocess, pretrain.pretrain_step
+
+    def recording_pre(cfg_):
+        fn = make_pre(cfg_)
+
+        def pre(batch, gen, sp_ctx=None):
+            seen["seeds"].append(gen.initial_seed())
+            return fn(batch, gen, sp_ctx)
+        return pre
+
+    def recording_step(model, opt, batch, lr, cfg_, **kw):
+        seen["drops"].append(kw["drop_self"])
+        seen["perms"].append(None if kw["perm"] is None
+                             else kw["perm"].tolist())
+        seen["shapes"].append(list(batch["seq"].shape))
+        return step(model, opt, batch, lr, cfg_, **kw)
+
+    pretrain.make_pretrain_preprocess = recording_pre
+    pretrain.pretrain_step = recording_step
+    printed = io.StringIO()
+    try:
+        w = _seq_world(world, PretrainConfig(**cfg).sp_size,
+                       PretrainConfig(**cfg).sph_size)
+        loader = _PreemptingLoader(batches[w.data_rank], world.rank, -1, -1)
+        with contextlib.redirect_stdout(printed):
+            model, _, info = pretrain.run_pretrain(
+                PretrainConfig(**cfg), loader=loader, device="cpu")
+    finally:
+        pretrain.make_pretrain_preprocess = make_pre
+        pretrain.pretrain_step = step
+    digest = hashlib.sha256()
+    for t in list(model.encoder_q.parameters()) + [model.queue,
+                                                   model.queue_ptr]:
+        digest.update(t.detach().numpy().tobytes())
+    return dict(seen, digest=digest.hexdigest(), printed=printed.getvalue(),
+                iteration=info["iteration"], exp_path=info["exp_path"],
+                queue_ptr=int(model.queue_ptr))
+
+
 TASKS = {"pretrain": task_pretrain, "alltoall": task_alltoall,
          "world_one": task_world_one,
-         "classifier": task_classifier, "run_pretrain": task_run_pretrain}
+         "classifier": task_classifier, "run_pretrain": task_run_pretrain,
+         "sp_prims": task_sp_prims, "sp_encoder": task_sp_encoder,
+         "sp_pretrain": task_sp_pretrain,
+         "sp_run_pretrain": task_sp_run_pretrain}
