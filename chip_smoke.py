@@ -96,7 +96,7 @@ non-zero exit on failure:
    entry points, in two spawned ranks sharing cuda:0 over gloo, each
    loading the kernels built in phase 1 (seqpar_rank):
    (a) main_nce --sp_size 2, InfoNCE at full width (32 clips a data
-       shard, each rank a T chunk of 16) for 6 loop steps: both ranks end
+       shard, each rank a T chunk of 16) for 4 loop steps: both ranks end
        with the same encoder_q and queue, only rank 0 writes the
        checkpoint (read back strictly), each rank launches jitter once
        (F = 1024) and pool1d_bwd 37 times a step;
@@ -106,11 +106,26 @@ non-zero exit on failure:
        S3D CoCLR with a full queue at sp 2; per-rank step time and peak
        memory beside the same program unsharded (phases 4, 9 and 8), and
        the time of the largest temporal halo and of one sp_pmean;
+   (d) main_classifier --train_what ft --sp_size 2 from phase 4's
+       checkpoint, 3 loop steps and validation: both ranks end with the
+       same classifier, only rank 0 writes the checkpoint (read back
+       strictly), each rank launches jitter once (F = 512) and pool1d_bwd
+       37 times a step, and validation counts each clip once;
+   (e) the linear probe (--train_what last --sp_size 2), 3 loop steps:
+       the backbone stays the checkpoint's bit for bit, no pool launch,
+       one jitter launch a step;
+   (f) device-resident finetune steps: S3D at sph 2 (H chunk 64), at
+       sp 2, at sp 2 x sph 2 (four spawned ranks, seqpar4_rank) and at
+       img_dim 224 with sph 2 beside the same step unsharded in this
+       process, r50 at sp 2: per-rank step time and peak memory beside
+       the unsharded finetune's; the float32 eval-mode classifier at sp 2
+       and sph 2 within 1e-4 of the unsharded logits;
    then, in this process, kernel 2 exact (bfloat16 and float32) against
-   its plain version at every launch shape of (a) and (c) that the
-   unsharded steps do not take, timed, and kernel 1 at the sp launch
-   (F = 1024, gray on). The ranks time-slice one card: their times are
-   not scaling numbers;
+   its plain version at every launch shape of (a), (c) and (f) that no
+   earlier path takes, timed (the classifier's sp 2 and sph 2 shapes are
+   checked to be pretraining's), and kernel 1 at the sp launch (F =
+   1024, gray on) and at the classifier's (F = 512, gray off). The ranks
+   time-slice one card: their times are not scaling numbers;
 13. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
@@ -1049,18 +1064,18 @@ def phase_fusion(work, pretrain, rgb_json, flow_json, rgb_cache, flow_cache):
           f"{ {k: round(v, 4) for k, v in sim.items()} }", flush=True)
 
 
-def phase_jitter_eval(dev):
-    """Kernel 1 at the classifier train preprocess's launch: F = 32 x 32
-    frames of 128 x 128, gray off, a channels-last view of the clips after
-    the uint8 flip, with the eval draws (p 0.3) and with every clip's
-    jitter on."""
+def phase_jitter_eval(dev, t=T, tag="jitter-eval"):
+    """Kernel 1 at the classifier train preprocess's launch: F = 32 x t
+    frames of 128 x 128 (t = 32; 16 for a T chunk at --sp_size 2), gray
+    off, a channels-last view of the clips after the uint8 flip, with the
+    eval draws (p 0.3) and with every clip's jitter on."""
     import torch
     from coclr_tpu_torch.evalsuite import steps
     from coclr_tpu_torch.kernels.jitter import (fused_jitter_normalize,
                                                 jitter_normalize_plain)
 
     gen = torch.Generator(dev).manual_seed(5)
-    seq = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev,
+    seq = torch.randint(0, 256, (B, t, S, S, 3), dtype=torch.uint8, device=dev,
                         generator=gen)
     result = {}
     for p in (1.0, steps.TRAIN_JITTER["p"]):
@@ -1069,9 +1084,9 @@ def phase_jitter_eval(dev):
             gen, B, p=p, strength=steps.TRAIN_JITTER["strength"]))
         flipped = torch.where(d["do_flip"][:, None, None, None, None],
                               seq.flip(3), seq)
-        rep = lambda v: v.repeat_interleave(T)
-        frames = flipped.reshape(B * T, S, S, 3).permute(0, 3, 1, 2)
-        gray = torch.full((B * T,), -1, dtype=torch.int32, device=dev)
+        rep = lambda v: v.repeat_interleave(t)
+        frames = flipped.reshape(B * t, S, S, 3).permute(0, 3, 1, 2)
+        gray = torch.full((B * t,), -1, dtype=torch.int32, device=dev)
         args = (frames, rep(d["fb"]), rep(d["fc"]), rep(d["fs"]), rep(d["fh"]),
                 gray, rep(d["orders"]))
         got = fused_jitter_normalize(*args).float()
@@ -1083,16 +1098,16 @@ def phase_jitter_eval(dev):
         check(over <= 1e-3, "jitter kernel disagrees with its plain version at "
                             "the eval shape")
         check(torch.equal(steps.apply_train_preprocess(seq, d).reshape(
-            B * T, S, S, 3).permute(0, 3, 1, 2).float(), got),
+            B * t, S, S, 3).permute(0, 3, 1, 2).float(), got),
               "apply_train_preprocess is not the kernel on the flipped clips")
-        print(f"[jitter-eval] F={B * T} S={S}, gray off, p={p} ({on} of {B} "
+        print(f"[{tag}] F={B * t} S={S}, gray off, p={p} ({on} of {B} "
               f"clips jittered): {over:.2e} of outputs more than 1 bf16 ULP off "
               f"(cap 1e-3), max abs err {float(diff.max()):.4g}", flush=True)
         result = {"max_abs_err": max(result.get("max_abs_err", 0.0),
                                      float(diff.max()))}
     # timed with the main path's draws (the last ones, p 0.3)
-    nbytes = frames.numel() * (1 + 2) + B * T * 6 * 4
-    ops = jitter_ops(B * T, S, args[2], args[4], gray, args[6])
+    nbytes = frames.numel() * (1 + 2) + B * t * 6 * 4
+    ops = jitter_ops(B * t, S, args[2], args[4], gray, args[6])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     result.update(ms=cuda_ms(lambda: fused_jitter_normalize(*args)),
@@ -1101,7 +1116,7 @@ def phase_jitter_eval(dev):
                   bound_ms=max(t_bytes, t_ops),
                   bound_by="bytes" if t_bytes >= t_ops else "operations",
                   bytes=nbytes, ops=ops)
-    print(f"[jitter-eval] kernel {result['ms']:.4f} ms, plain "
+    print(f"[{tag}] kernel {result['ms']:.4f} ms, plain "
           f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
           f"({result['bound_by']}: {nbytes} B, {ops} f32 ops)", flush=True)
     torch.cuda.empty_cache()
@@ -1410,6 +1425,7 @@ def phase_ddp(work, data_root, pretrained, card):
 
 
 SP_RANKS = 2  # the seqpar phase's ranks, sharing cuda:0 over gloo
+SP_LOOP = 4   # main_nce --sp_size 2's loop steps there
 
 
 def conditioned_(backbone, seed=0):
@@ -1460,11 +1476,238 @@ class PoolShapes:
         return False
 
 
-def seqpar_rank(rank, port, out, data_root):
+class JitterFrames:
+    """Inside the block, the frame count F of each jitter kernel call made
+    through ops/augment.py (every training path's) is kept in `frames`."""
+
+    def __enter__(self):
+        from coclr_tpu_torch.ops import augment
+
+        self.frames = []
+        self.original = augment.fused_jitter_normalize
+
+        def record(x, *args, **kw):
+            self.frames.append(int(x.shape[0]))
+            return self.original(x, *args, **kw)
+
+        augment.fused_jitter_normalize = record
+        return self
+
+    def __exit__(self, *exc):
+        from coclr_tpu_torch.ops import augment
+
+        augment.fused_jitter_normalize = self.original
+        return False
+
+
+def classifier_sp_step(dev, w, net, img, tag, pool_launches):
+    """The finetune step (`net`, a 101-way head, bfloat16, Adam) on a
+    device-resident batch of 32 clips of T x img x img, as the member of
+    the World `w` runs it (None: unsharded, the card alone): its T chunk of
+    the uint8 clips, the train preprocess at full H, then its H rows, DDP
+    over every rank. One step's launches, jitter frames and pool shapes,
+    the median of 3 timed steps, peak device memory and the loss; the
+    classifier (parameters and buffers) equal on every rank."""
+    import torch
+    from coclr_tpu_torch import main_classifier
+    from coclr_tpu_torch.evalsuite import driver, steps
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.parallel import dist
+    from coclr_tpu_torch.train.pretrain import member_chunk
+
+    cfg = main_classifier.cfg_from_args(main_classifier.parse_args(eval_argv(
+        "", "--train_what", "ft", "--net", net, "--img_dim", str(img))))
+    sp, sph = (w.sp, w.sph) if w else (1, 1)
+    model = driver.build_model(cfg, sp=w.seqpar if w else None).to(dev)
+    opt = steps.make_classifier_optimizer(cfg, model)
+    ddp = dist.wrap(model, w) if w else None
+    gen = torch.Generator(dev).manual_seed(10)  # alike on every member
+    seq = torch.randint(0, 256, (B, T, img, img, 3), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    label = torch.randint(0, NUM_CLASS, (B,), device=dev, generator=gen)
+    seq = member_chunk({"seq": seq}, 1, w.sp_rank if w else 0,
+                       sp)["seq"].contiguous()
+    h_chunk = (w.sph_rank, sph) if w else (0, 1)
+
+    def step():
+        x = steps.preprocess_train(seq, gen, cfg.dtype, h_chunk)
+        return steps.train_step(model, opt, x, label, 1e-3, drop_gen=gen,
+                                ddp=ddp)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    with PoolShapes() as rec, JitterFrames() as jf:
+        metrics = step()
+    one = {k: kern.launches for k, kern in build.KERNELS.items()}
+    check(one == {"jitter": 1, "pool1d_bwd": pool_launches},
+          f"[{tag}] launches in one step {one}")
+    check(jf.frames == [B * T // sp], f"[{tag}] jitter frames {jf.frames}")
+    check(math.isfinite(float(metrics["loss"])), f"[{tag}] loss")
+    if w is not None:
+        check(same_on_all_ranks(list(model.parameters())
+                                + list(model.buffers()), w),
+              f"[{tag}] the classifier differs between the ranks")
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step()["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res = dict(counts=one, frames=jf.frames[0], dev_ms=statistics.median(ms[1:]),
+               peak=torch.cuda.max_memory_allocated(),
+               loss=float(metrics["loss"]),
+               shapes=[list(k) + [v] for k, v in rec.shapes.items()])
+    print(f"[{tag}] {net} finetune at img_dim {img}, sp {sp} x sph {sph}, "
+          f"device-resident step: launches {one} (jitter F = {res['frames']}), "
+          f"loss {res['loss']:.4f}, median {res['dev_ms']:.1f} ms, peak "
+          f"{res['peak'] / 2**30:.2f} GiB"
+          + ("; the classifier equal on every rank" if w else ""),
+          flush=True, **({"force": True} if w else {}))
+    del model, opt, ddp, seq
+    torch.cuda.empty_cache()
+    return res
+
+
+def classifier_sp_loops(dev, world, work, data_root, pretrained, tag):
+    """main_classifier --sp_size 2 from `pretrained` on this rank: (d) the
+    finetune, 3 loop steps and validation; (e) the linear probe, 3 loop
+    steps and validation. Counted launches, jitter frames and pool shapes;
+    both ranks end with the same classifier; the validation count is the
+    number of validation clips; the probe's backbone stays the
+    checkpoint's bit for bit."""
+    import torch
+    from coclr_tpu_torch import main_classifier
+    from coclr_tpu_torch.evalsuite import driver
+    from coclr_tpu_torch.evalsuite.driver import run_classifier_train
+    from coclr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    for what, pool_launches in (("ft", 37), ("last", 0)):
+        cfg = main_classifier.cfg_from_args(main_classifier.parse_args(
+            eval_argv(data_root, "--train_what", what, "--epochs", "1",
+                      "--pretrain", pretrained, "--dist-backend", "gloo",
+                      "--sp_size", "2")))
+        with PoolShapes() as rec, JitterFrames() as jf:
+            (model, _, info), counts, _, peak = counted(
+                lambda: run_classifier_train(cfg, max_steps=3, device="cuda"),
+                work)
+        n = len(info["step_s"])
+        per_step = {k: c / n for k, c in counts.items()}
+        check(n == 3 and per_step == {"jitter": 1, "pool1d_bwd": pool_launches},
+              f"[{tag}] {what}: {n} steps, launches {counts}")
+        check(jf.frames == [B * T // 2] * 3, f"[{tag}] {what}: jitter frames "
+                                             f"{jf.frames}")
+        check(math.isfinite(info["loss"]) and math.isfinite(info["val"]["loss"]),
+              f"[{tag}] {what}: loss {info['loss']}, validation {info['val']}")
+        clips = min(len(driver.build_eval_dataset(cfg, "val")), 3 * B)
+        check(info["val"]["count"] == clips,
+              f"[{tag}] {what}: validation counted {info['val']['count']} "
+              f"clips, not {clips}")
+        check(same_on_all_ranks(list(model.parameters())
+                                + list(model.buffers()), world),
+              f"[{tag}] {what}: the classifier differs between the ranks")
+        if what == "last":
+            file = {k[len("encoder_q.0."):]: v for k, v in
+                    load_checkpoint(pretrained)["state_dict"].items()
+                    if k.startswith("encoder_q.0.")}
+            got = model.backbone.state_dict()
+            check(got.keys() == file.keys()
+                  and all(torch.equal(v.cpu(), file[k]) for k, v in got.items()),
+                  f"[{tag}] the probe's backbone is not its checkpoint's")
+        name = "cls_sp2" if what == "ft" else "probe_sp2"
+        out[name] = dict(counts=counts, per_step=per_step, peak=peak,
+                         val=info["val"], clips=clips,
+                         step_ms=statistics.median(info["step_s"][1:]) * 1e3,
+                         shapes=[list(k) + [v // n]
+                                 for k, v in rec.shapes.items()],
+                         ckpt=os.path.join(work, info["exp_path"], "model",
+                                           "epoch0.pth.tar"))
+        print(f"[{tag}] main_classifier --train_what {what} --sp_size 2: 3 "
+              f"steps of {B} clips (T chunk {T // 2} of {T}), launches "
+              f"{counts} (jitter F = {jf.frames[0]}), median step "
+              f"{out[name]['step_ms']:.1f} ms after 1, peak "
+              f"{peak / 2**30:.2f} GiB; validation {info['val']} over {clips} "
+              f"clips; the classifier equal on both ranks"
+              + ("; the backbone is the checkpoint's bit for bit"
+                 if what == "last" else ""), force=True, flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def classifier_forward_sp(dev, worlds, tag):
+    """The float32 eval-mode S3D classifier (TF32 off; conditioned weights,
+    a head of N(0, 1/32)) at each World of `worlds` against the same
+    forward unsharded, on 4 clips: the largest difference of the logits."""
+    import torch
+    from coclr_tpu_torch.config import EvalConfig
+    from coclr_tpu_torch.evalsuite import driver
+    from coclr_tpu_torch.train.pretrain import member_chunk
+
+    cfg = EvalConfig(net="s3d", train_what="ft", compute_dtype="float32",
+                     seq_len=T, img_dim=S)
+    model = driver.build_model(cfg)
+    conditioned_(model.backbone, seed=6)
+    with torch.no_grad():
+        model.final_fc.weight.normal_(0.0, 1.0 / 32,
+                                      generator=torch.Generator().manual_seed(7))
+    model = model.to(dev).eval()
+    x = torch.randn(4, 3, T, S, S, device=dev,
+                    generator=torch.Generator(dev).manual_seed(8))
+    with torch.no_grad():
+        ref = model(x)[0]
+    out = {}
+    for name, w in worlds.items():
+        sharded = driver.build_model(cfg, sp=w.seqpar)
+        sharded.load_state_dict(model.state_dict())
+        sharded = sharded.to(dev).eval()
+        xs = member_chunk({"x": x}, 2, w.sp_rank, w.sp)["x"]
+        xs = member_chunk({"x": xs}, 3, w.sph_rank, w.sph)["x"].contiguous()
+        with torch.no_grad():
+            y = sharded(xs)[0]
+        err = float((y - ref).abs().max())
+        out[name] = dict(err=err, scale=float(ref.abs().max()))
+        check(err <= 1e-4, f"[{tag}] classifier logits at {name} differ from "
+                           f"the unsharded ones by {err} (limit 1e-4)")
+        del sharded, xs, y
+    print(f"[{tag}] float32 eval-mode S3D classifier (TF32 off), 4 clips: max "
+          f"abs difference to the unsharded 101 logits "
+          + ", ".join(f"{v['err']:.3g} at {k}" for k, v in out.items())
+          + f" (limit 1e-4; logits up to {out['sp2']['scale']:.3g})",
+          force=True, flush=True)
+    del model, x, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def seqpar4_rank(rank, port, out):
+    """One of four ranks sharing cuda:0 over gloo in a (data 1, sp 2, sph
+    2) grid, started as torchrun starts it: the S3D finetune step on a
+    device-resident batch (classifier_sp_step). Writes
+    out/grid4-rank<rank>.json."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="4", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch.distributed as tdist
+    from coclr_tpu_torch.parallel import dist
+    from coclr_tpu_torch.utils import prepare_run
+
+    dev = prepare_run("cuda")
+    world = dist.maybe_initialize(dev, "gloo", 0, 2, 2)
+    check(world.n_data == 1 and world.sp == 2 and world.sph == 2,
+          "[seqpar 4-rank] not a (data 1, sp 2, sph 2) grid")
+    res = classifier_sp_step(dev, world, "s3d", S, f"seqpar 4-rank {rank}", 37)
+    with open(os.path.join(out, f"grid4-rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    tdist.barrier(group=world.host_group)
+    tdist.destroy_process_group()
+
+
+def seqpar_rank(rank, port, out, data_root, pretrained):
     """One of the seqpar phase's two ranks, in a process of its own on
     cuda:0, started as torchrun starts it:
     (a) main_nce --sp_size 2 (InfoNCE, full width, 32 clips a data shard):
-        6 loop steps through run_pretrain, the launches and pool shapes of
+        4 loop steps through run_pretrain, the launches and pool shapes of
         the run, encoder_q and the queue equal on both ranks;
     (b) the float32 eval-mode S3D encoder (TF32 off) at sp 2 and at sph 2
         against the same forward unsharded, on 4 clips;
@@ -1472,7 +1715,14 @@ def seqpar_rank(rank, port, out, data_root):
         S3D CoCLR with a full queue at sp 2, each with its launches, pool
         shapes, median step time and peak device memory;
     and the time of the largest temporal halo of the S3D step and of one
-    sp_pmean of BatchNorm statistics. Writes out/rank<rank>.json."""
+    sp_pmean of BatchNorm statistics; then the classifier:
+    (d), (e) main_classifier --train_what ft and last --sp_size 2 from
+        `pretrained`, 3 loop steps and validation each
+        (classifier_sp_loops);
+    (f) device-resident finetune steps: S3D at sph 2, at sp 2 and at
+        img_dim 224 with sph 2, r50 at sp 2 (classifier_sp_step), and the
+        float32 eval-mode classifier at sp 2 and sph 2 against unsharded.
+    Writes out/rank<rank>.json."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_RANKS),
                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
@@ -1504,17 +1754,17 @@ def seqpar_rank(rank, port, out, data_root):
     cfg = main_nce.cfg_from_args(main_nce.parse_args(argv))
     with PoolShapes() as rec:
         (model, _, info), counts, _, peak = counted(
-            lambda: run_pretrain(cfg, max_steps=6, device="cuda"), work)
+            lambda: run_pretrain(cfg, max_steps=SP_LOOP, device="cuda"), work)
     world = dist.maybe_initialize(dev, "gloo", 0, 2, 1)
     n = len(info["step_s"])
     per_step = {k: c / n for k, c in counts.items()}
-    check(n == 6 and math.isfinite(info["loss"]), f"[{tag}] (a) {n} steps, "
-          f"loss {info['loss']}")
+    check(n == SP_LOOP and math.isfinite(info["loss"]),
+          f"[{tag}] (a) {n} steps, loss {info['loss']}")
     check(world.sp == 2 and world.n_data == 1 and world.seqpar is not None,
           f"[{tag}] (a) not a (data 1, sp 2) grid")
     check(per_step == {"jitter": 1, "pool1d_bwd": 37},
           f"[{tag}] (a) launches per step {per_step}")
-    check(int(model.queue_ptr) == 6 * B % K, f"[{tag}] (a) queue_ptr")
+    check(int(model.queue_ptr) == SP_LOOP * B % K, f"[{tag}] (a) queue_ptr")
     check(same_on_all_ranks(list(model.encoder_q.parameters()) + [model.queue],
                             world),
           f"[{tag}] (a) encoder_q or the queue differs between the ranks")
@@ -1524,7 +1774,7 @@ def seqpar_rank(rank, port, out, data_root):
                                   for k, v in rec.shapes.items()],
                           ckpt=os.path.join(work, info["exp_path"], "model",
                                             "epoch0.pth.tar"))
-    print(f"[{tag}] (a) main_nce --sp_size 2: 6 steps of {B} clips (T chunk "
+    print(f"[{tag}] (a) main_nce --sp_size 2: {n} steps of {B} clips (T chunk "
           f"{T // 2} of {T}), launches {counts}, median step "
           f"{res['infonce']['step_ms']:.1f} ms after 2 warm-up, peak "
           f"{peak / 2**30:.2f} GiB; encoder_q and the queue equal on both "
@@ -1653,20 +1903,41 @@ def seqpar_rank(rank, port, out, data_root):
               f"queue equal on both ranks", force=True, flush=True)
         del model, opt, ddp, batch
         torch.cuda.empty_cache()
+
+    # the classifier: (d), (e) the loops through main_classifier's flags,
+    # (f) device-resident steps and the eval-mode forward
+    t0 = time.time()
+    res.update(classifier_sp_loops(dev, world, work, data_root, pretrained,
+                                   tag))
+    t1 = time.time()
+    for name, net, img, w, expect in (
+            ("cls_sph2", "s3d", S, worlds["sph2"], 37),
+            ("cls_sp2_dev", "s3d", S, worlds["sp2"], 37),
+            ("cls_r50_sp2", "r50", S, worlds["sp2"], 2),
+            ("cls_224_sph2", "s3d", 224, worlds["sph2"], 37)):
+        res[name] = classifier_sp_step(dev, w, net, img, f"{tag} {name}",
+                                       expect)
+    res["cls_forward"] = classifier_forward_sp(dev, worlds, tag)
+    print(f"[{tag}] classifier loops {t1 - t0:.1f} s, device steps and "
+          f"forward {time.time() - t1:.1f} s", force=True, flush=True)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     tdist.barrier(group=world.host_group)
     tdist.destroy_process_group()
 
 
-def phase_seqpar(dev, work, data_root, card, paths, unsharded_shapes):
+def phase_seqpar(dev, work, data_root, card, paths, unsharded_shapes,
+                 pretrained):
     """Sequence parallelism (--sp_size / --sph_size) through the entry points
-    in two spawned ranks that share cuda:0 over gloo (seqpar_rank), then in
-    this process: the new pool1d_bwd launch shapes of (a) and (c) exact
-    against the plain version in bfloat16 and float32 (timed, with their
-    bound and library times), kernel 1 at the sp launch (F = 1024, gray
-    on). Returns the paths it counted and the kernels' sp numbers. Two
-    ranks on one card time-slice it: their times are not scaling numbers."""
+    in two spawned ranks that share cuda:0 over gloo (seqpar_rank), the
+    classifier's finetune step at sp 2 x sph 2 in four (seqpar4_rank) and
+    at img_dim 224 unsharded in this process; then in this process: the
+    new pool1d_bwd launch shapes exact against the plain version in
+    bfloat16 and float32 (timed, with their bound and library times),
+    kernel 1 at the sp launch (F = 1024, gray on) and at the classifier's
+    (F = 512, gray off). Returns the paths it counted and the kernels' sp
+    numbers. Ranks on one card time-slice it: their times are not scaling
+    numbers."""
     import torch
     import torch.multiprocessing as tmp
     from coclr_tpu_torch.models.moco import MoCo
@@ -1677,7 +1948,8 @@ def phase_seqpar(dev, work, data_root, card, paths, unsharded_shapes):
     out = os.path.join(work, "seqpar")
     os.makedirs(out)
     torch.cuda.empty_cache()
-    tmp.spawn(seqpar_rank, args=(free_port(), out, data_root), nprocs=SP_RANKS)
+    tmp.spawn(seqpar_rank, args=(free_port(), out, data_root, pretrained),
+              nprocs=SP_RANKS)
     ranks = []
     for r in range(SP_RANKS):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -1689,7 +1961,8 @@ def phase_seqpar(dev, work, data_root, card, paths, unsharded_shapes):
     back = MoCo("s3d", DIM, K, torch.bfloat16)
     load_reference_state_dict(back, load_checkpoint(
         ranks[0]["infonce"]["ckpt"])["state_dict"])
-    check(int(back.queue_ptr) == 6 * B % K, "[seqpar] checkpoint read back wrong")
+    check(int(back.queue_ptr) == SP_LOOP * B % K,
+          "[seqpar] checkpoint read back wrong")
     del back
     ranks_s = time.time() - t0
     add = lambda key: {k: sum(r[key]["counts"][k] for r in ranks)
@@ -1740,8 +2013,116 @@ def phase_seqpar(dev, work, data_root, card, paths, unsharded_shapes):
     # kernel 1 at the sp 2 launch: 32 clips x 2 x a T chunk of 16
     jit = jitter_case(B * 2 * T // 2, S, dev, gen, timed=True,
                       tag="jitter-sp2")
-    print(f"[seqpar] phase took {time.time() - t0:.1f} s", flush=True)
-    return new, {"pool": pool, "jitter": jit, "ranks": ranks}
+
+    # the classifier: its loops' checkpoints, the 4-rank grid, img_dim 224
+    # unsharded, the new pool shapes and kernel 1 at its sp 2 launch
+    t1 = time.time()
+    cls = classifier_sp_results(dev, out, ranks, wrote, paths, card)
+    new.update(cls["paths"])
+    held = set(unsharded_shapes) | {
+        tuple(v[:6]) for key in ("infonce", "sph2_s3d", "sp2_r50")
+        for v in ranks[0][key]["shapes"]}
+    for name, shapes in cls["shapes"].items():
+        if name in ("cls_sp2", "probe_sp2", "cls_sp2_dev", "cls_sph2",
+                    "cls_r50_sp2"):
+            check(set(shapes) <= held, f"[seqpar] {name} pools at shapes "
+                                       f"that pretraining's do not take")
+            continue
+        fresh = {k: c for k, c in shapes.items() if k not in held}
+        check(fresh, f"[seqpar] no new pool shape at {name}")
+        pool[name] = measure_pool(fresh, dev, gen, f"pool-{name}",
+                                  exact_f32=True)
+        pool[name]["launches_per_step"] = sum(shapes.values())
+    cls_jit = phase_jitter_eval(dev, T // 2, "jitter-cls-sp2")
+    print(f"[seqpar] classifier part took {time.time() - t1:.1f} s; phase "
+          f"took {time.time() - t0:.1f} s", flush=True)
+    return new, {"pool": pool, "jitter": jit, "cls_jitter": cls_jit,
+                 "ranks": ranks}
+
+
+def classifier_sp_results(dev, out, ranks, wrote, paths, card):
+    """The classifier part of the seqpar phase from the two ranks' results:
+    rank 0 alone wrote the classifiers' checkpoints, which read back
+    strictly; the (data 1, sp 2, sph 2) finetune step in four spawned
+    ranks; the img_dim 224 step unsharded in this process; per-rank times
+    and peaks beside the unsharded finetune's. Returns the paths and each
+    one's pool shapes."""
+    import torch
+    import torch.multiprocessing as tmp
+    from coclr_tpu_torch import main_classifier
+    from coclr_tpu_torch.evalsuite import driver
+    from coclr_tpu_torch.utils.checkpoint import load_checkpoint
+
+    for name in ("cls_sp2", "probe_sp2"):
+        ckpt = ranks[0][name]["ckpt"]
+        check(os.path.relpath(ckpt, os.path.join(out, "rank0")) in wrote[0],
+              f"[seqpar] {name}: no checkpoint from rank 0")
+        cfg = main_classifier.cfg_from_args(main_classifier.parse_args(
+            eval_argv("", "--train_what", "ft" if name == "cls_sp2"
+                      else "last")))
+        driver.build_model(cfg).load_state_dict(
+            load_checkpoint(ckpt)["state_dict"])
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    tmp.spawn(seqpar4_rank, args=(free_port(), out), nprocs=4)
+    print(f"[seqpar] 4 ranks: {time.time() - t0:.1f} s", flush=True)
+    grid4 = []
+    for r in range(4):
+        with open(os.path.join(out, f"grid4-rank{r}.json")) as f:
+            grid4.append(json.load(f))
+    alone = classifier_sp_step(dev, None, "s3d", 224, "seqpar cls-224", 37)
+
+    un, un_r50 = paths["finetune"], paths["r50_finetune"]
+    ratio = lambda peak, ref: round(peak / ref, 2)
+    for name in ("cls_sp2", "probe_sp2"):
+        ref = paths["finetune" if name == "cls_sp2" else "probe"]
+        print(f"[seqpar] main_classifier --train_what "
+              f"{'ft' if name == 'cls_sp2' else 'last'} --sp_size 2 loop, "
+              f"2 ranks sharing one card ({card}) over gloo: per-rank step "
+              f"{[round(r[name]['step_ms'], 1) for r in ranks]} ms, peak "
+              f"{[round(r[name]['peak'] / 2**30, 2) for r in ranks]} GiB "
+              f"(peak ratio {ratio(ranks[0][name]['peak'], ref['loop_peak'])} "
+              f"against the unsharded loop's {ref['loop_peak'] / 2**30:.2f} "
+              f"GiB, step {ref['step_ms']:.1f} ms); validation count "
+              f"{ranks[0][name]['val']['count']} of {ranks[0][name]['clips']} "
+              f"clips; checkpoint from rank 0 only, read back strictly",
+              flush=True)
+    per_rank = lambda name: [r[name] for r in ranks]
+    rows = [(per_rank("cls_sph2"), un, "S3D finetune at sph 2"),
+            (per_rank("cls_sp2_dev"), un, "S3D finetune at sp 2"),
+            (grid4, un, "S3D finetune at sp 2 x sph 2 (4 ranks)"),
+            (per_rank("cls_r50_sp2"), un_r50, "r50 finetune at sp 2"),
+            (per_rank("cls_224_sph2"), alone,
+             "S3D finetune at img_dim 224, sph 2")]
+    for got, ref, what in rows:
+        print(f"[seqpar] {what}, device-resident: per-rank step "
+              f"{[round(g['dev_ms'], 1) for g in got]} ms, peak "
+              f"{[round(g['peak'] / 2**30, 2) for g in got]} GiB; unsharded "
+              f"on the card alone {ref['dev_ms']:.1f} ms, peak "
+              f"{ref['peak'] / 2**30:.2f} GiB (peak ratio "
+              f"{ratio(got[0]['peak'], ref['peak'])}); the ranks time-slice "
+              f"one card, so the times are not scaling numbers", flush=True)
+    fwd = ranks[0]["cls_forward"]
+    print(f"[seqpar] eval-mode float32 classifier logits against unsharded: "
+          f"{fwd['sp2']['err']:.3g} at sp 2, {fwd['sph2']['err']:.3g} at "
+          f"sph 2 (limit 1e-4)", flush=True)
+
+    add = lambda rs, key: {k: sum((r[key] if key else r)["counts"][k]
+                                  for r in rs)
+                           for k in ("jitter", "pool1d_bwd")}
+    new, shapes = {}, {}
+    for name in ("cls_sp2", "probe_sp2", "cls_sph2", "cls_sp2_dev",
+                 "cls_r50_sp2", "cls_224_sph2"):
+        new["seqpar_" + name] = {"counts": add(ranks, name),
+                                 "per_step": ranks[0][name].get(
+                                     "per_step", ranks[0][name]["counts"])}
+        shapes[name] = {tuple(v[:6]): v[6] for v in ranks[0][name]["shapes"]}
+    new["seqpar_cls_sp2xsph2"] = {"counts": add(grid4, None),
+                                  "per_step": grid4[0]["counts"]}
+    shapes["cls_sp2xsph2"] = {tuple(v[:6]): v[6] for v in grid4[0]["shapes"]}
+    new["cls_224"] = {"counts": alone["counts"], "per_step": alone["counts"]}
+    shapes["cls_224"] = {tuple(v[:6]): v[6] for v in alone["shapes"]}
+    return {"paths": new, "shapes": shapes}
 
 
 def glob_ckpts(root):
@@ -1955,7 +2336,7 @@ def main():
         unsharded = {tuple(r["shape"]) for r in pool["rows"]
                      + pool["r50"]["rows"]}
         sp_paths, sp = phase_seqpar(dev, work, data_root, card, paths,
-                                    unsharded)
+                                    unsharded, pretrained)
         paths.update(sp_paths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1965,7 +2346,10 @@ def main():
                "r50_finetune", "ddp_nccl_1rank", "ddp_gloo_2rank",
                "ddp_gloo_2rank_alltoall", "ddp_gloo_2rank_coclr_open",
                "ddp_gloo_2rank_finetune", "profile_loop", "seqpar_sp2",
-               "seqpar_sph2_s3d", "seqpar_sp2_r50", "seqpar_sp2_coclr_open")
+               "seqpar_sph2_s3d", "seqpar_sp2_r50", "seqpar_sp2_coclr_open",
+               "seqpar_cls_sp2", "seqpar_probe_sp2", "seqpar_cls_sph2",
+               "seqpar_cls_sp2_dev", "seqpar_cls_sp2xsph2",
+               "seqpar_cls_r50_sp2", "seqpar_cls_224_sph2", "cls_224")
 
     def launches(name):
         return {"launches": sum(p["counts"][name] for p in paths.values()),
@@ -1988,7 +2372,8 @@ def main():
              **launches("jitter"),
              max_abs_err=max(j2["max_abs_err"], j4["max_abs_err"],
                              jit_eval["max_abs_err"],
-                             sp["jitter"]["max_abs_err"]),
+                             sp["jitter"]["max_abs_err"],
+                             sp["cls_jitter"]["max_abs_err"]),
              ms=j2["ms"], kernel_ms=j2["ms"], ms_planar=j2["ms_planar"],
              plain_ms=j2["plain_ms"], bound_ms=j2["bound_ms"],
              bound_by=j2["bound_by"], library_ms=None,
@@ -2012,7 +2397,16 @@ def main():
                  library_ms=None,
                  **{k: sp["jitter"][k] for k in ("max_abs_err", "ms",
                                                  "plain_ms", "bound_ms",
-                                                 "bound_by")})),
+                                                 "bound_by")}),
+             cls_sp_launch=dict(
+                 shape="F=512 frames (32 clips x a T chunk of 16, "
+                       "main_classifier --sp_size 2), 3x128x128 uint8 "
+                       "channels-last view after the uint8 flip, gray off -> "
+                       "bfloat16",
+                 library_ms=None,
+                 **{k: sp["cls_jitter"][k] for k in ("max_abs_err", "ms",
+                                                     "plain_ms", "bound_ms",
+                                                     "bound_by")})),
         dict(name="pool1d_bwd", route="cuda",
              source="coclr_tpu_torch/csrc/pool1d_bwd.cu",
              replaces="coclr_tpu/ops/pallas_pool.py:106",
@@ -2033,9 +2427,10 @@ def main():
              sp_launches={
                  name: dict(
                      shape=f"sum over the launches of one full-width {name} "
-                           f"step at shapes the unsharded step does not "
-                           f"take (halo'd blocks, lo = 0, or a T / H chunk), "
-                           f"bfloat16, exact in bfloat16 and float32",
+                           f"step at the shapes no earlier path takes "
+                           f"(halo'd blocks, lo = 0, a T / H chunk, or "
+                           f"img_dim 224), bfloat16, exact in bfloat16 and "
+                           f"float32",
                      **{k: v[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms", "library", "rows",

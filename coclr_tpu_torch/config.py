@@ -106,6 +106,10 @@ class EvalConfig:
     worker_mode: str = "thread"
     dist_backend: str = "nccl"
     num_devices: int = 0
+    # sequence parallelism of the classifier's training and validation
+    # (ops/seqpar.py); the --test paths run unsharded
+    sp_size: int = 1
+    sph_size: int = 1
 
     @property
     def dtype(self):

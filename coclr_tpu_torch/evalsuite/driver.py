@@ -13,6 +13,15 @@ the ranks and marks the padding rows not valid, as the JAX driver pads it
 for the devices, and the eval step sums over the ranks. Only rank 0 reads
 --resume and --pretrain (the model, the optimizer state and the loop
 position are then broadcast from it) and writes checkpoints and logs.
+
+Under sequence parallelism (cfg.sp_size, cfg.sph_size; parallel/dist.py)
+the ranks form a (data, sp, sph) grid: the loaders shard by data rank, so
+the members of a data shard read the same rows (and the same number of
+batches, which their collectives need), each member cuts its T chunk of
+the clips, and the draws are seeded by the data rank, so that the members
+flip, jitter and drop out alike (the JAX step's fold over the data axis
+only). The train preprocess runs at full H before the member's H cut;
+validation cuts T and H first and sums over the data group.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ from coclr_tpu_torch.evalsuite import steps
 from coclr_tpu_torch.models.classifier import LinearClassifier
 from coclr_tpu_torch.parallel import dist
 from coclr_tpu_torch.train.lr import step_schedule
-from coclr_tpu_torch.train.pretrain import NullSink, step_seed, upload
+from coclr_tpu_torch.train.pretrain import (NullSink, member_chunk,
+                                            step_seed, upload)
 from coclr_tpu_torch.utils import malloc_trim, prepare_run
 from coclr_tpu_torch.utils.checkpoint import (load_checkpoint, make_payload,
                                               resume_from, save_checkpoint)
@@ -65,16 +75,17 @@ def set_path(cfg: EvalConfig):
     return img_path, model_path, exp_path
 
 
-def build_model(cfg: EvalConfig) -> LinearClassifier:
+def build_model(cfg: EvalConfig, sp=None) -> LinearClassifier:
     """The train_what policy (eval/main_classifier.py:101-109): 'last' has
     final_bn and the L2 norm, no dropout, and a frozen backbone; 'ft' and
-    'all' have dropout and neither of the others. Drawn from cfg.seed."""
+    'all' have dropout and neither of the others. Drawn from cfg.seed.
+    `sp`: the sequence-parallel spec (World.seqpar), or None."""
     last = cfg.train_what == "last"
     return LinearClassifier(
         num_class=NUM_CLASS[cfg.dataset], network=cfg.net,
         dropout=cfg.dropout, use_dropout=not last, use_l2_norm=last,
         use_final_bn=last, freeze_backbone=last, dtype=cfg.dtype,
-        gen=torch.Generator().manual_seed(cfg.seed))
+        gen=torch.Generator().manual_seed(cfg.seed), sp=sp)
 
 
 def build_eval_dataset(cfg: EvalConfig, mode: str, root: Optional[str] = None,
@@ -114,12 +125,18 @@ def load_pretrained_backbone(model: LinearClassifier, path: str
     return model
 
 
-def _squeeze(batch):
+def _squeeze(batch, world=None, h_cut: bool = False):
     """The dataset's single window [B, 1, T, S, S, 3] -> [B, T, S, S, 3],
-    with the labels and the loader's `valid` rows where it pads."""
+    with the labels and the loader's `valid` rows where it pads; under
+    sequence parallelism this member's T chunk (dim 1), and with `h_cut`
+    its H rows (dim 2) too."""
     out = {"seq": batch["seq"][:, 0], "label": batch["label"]}
     if "valid" in batch:
         out["valid"] = batch["valid"]
+    if world is not None:
+        out = member_chunk(out, 1, world.sp_rank, world.sp)
+        if h_cut:
+            out = member_chunk(out, 2, world.sph_rank, world.sph)
     return out
 
 
@@ -132,9 +149,18 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
     `max_steps` (per epoch, train and validation) are injectable for
     tests. Returns (model, optimizer, info)."""
     device = prepare_run(device)
-    world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices)
-    rank, ranks = (world.rank, world.size) if world else (0, 1)
-    model = build_model(cfg).to(device)
+    world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices,
+                                  cfg.sp_size, cfg.sph_size)
+    rank, n_data = (world.data_rank, world.n_data) if world else (0, 1)
+    sp = world.seqpar if world else None
+    h_chunk = (world.sph_rank, world.sph) if world else (0, 1)
+    print(f"=> creating the {cfg.train_what} classifier with '{cfg.net}' "
+          f"backbone on {device}" + (f", {world.size} ranks" if world else "")
+          + (f" (sequence-parallel x{world.sp})" if sp and world.sp > 1
+             else "")
+          + (f" (spatial-sequence-parallel x{world.sph})"
+             if sp and world.sph > 1 else ""))
+    model = build_model(cfg, sp=sp).to(device)
     optimizer = steps.make_classifier_optimizer(cfg, model)
 
     img_path, model_path, exp_path = set_path(cfg)
@@ -155,8 +181,8 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
         train_dataset = build_eval_dataset(cfg, "train")
     if val_dataset is None:
         val_dataset = build_eval_dataset(cfg, "val")
-    shard = (rank, ranks) if world else None
-    global_batch = cfg.batch_size * ranks
+    shard = (rank, n_data) if world else None
+    global_batch = cfg.batch_size * n_data
     train_loader = Loader(train_dataset, global_batch,
                           num_workers=cfg.workers, seed=cfg.seed,
                           worker_mode=cfg.worker_mode, process_shard=shard)
@@ -190,9 +216,9 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
 
         end = time.time()
         for idx, batch in enumerate(train_loader):
-            batch = upload(_squeeze(batch), device)
+            batch = upload(_squeeze(batch, world), device)
             gen.manual_seed(step_seed(cfg.seed, iteration, rank))
-            x = steps.preprocess_train(batch["seq"], gen, cfg.dtype)
+            x = steps.preprocess_train(batch["seq"], gen, cfg.dtype, h_chunk)
             metrics = steps.train_step(model, optimizer, x, batch["label"], lr,
                                        drop_gen=gen, ddp=ddp)
             drain(pending)  # waits for step i-1 while step i runs
@@ -217,8 +243,7 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
         plotter.add_data("global/loss", train_loss, epoch)
         plotter.add_data("global/top1", meters["acc@1"].avg, epoch)
 
-        val = validate(model, val_loader, cfg, device, max_steps,
-                       group=world.group if world else None)
+        val = validate(model, val_loader, cfg, device, max_steps, world)
         print(f"val epoch {epoch}: loss {val['loss']:.4f} "
               f"top1 {val['top1']:.4f}")
         logger.log(f"val epoch {epoch} top1 {val['top1']:.4f}")
@@ -237,17 +262,21 @@ def run_classifier_train(cfg: EvalConfig, train_dataset=None,
 
 
 def validate(model, loader, cfg: EvalConfig, device, max_steps: int = 0,
-             group=None):
+             world: Optional[dist.World] = None):
     """Means of the eval step's metrics over the loader's clips (of every
-    rank of `group`; padding rows do not count)."""
+    data shard of `world`; padding rows do not count), with `count`, the
+    clips counted."""
     vmeters = {k: AverageMeter(k) for k in ("loss", "top1", "top5")}
     for vidx, batch in enumerate(loader):
-        batch = upload(_squeeze(batch), device)
+        batch = upload(_squeeze(batch, world, h_cut=True), device)
         x = steps.preprocess_eval(batch["seq"], cfg.dtype)
         m, _, _ = steps.eval_step(model, x, batch["label"],
-                                  batch.get("valid"), group=group)
+                                  batch.get("valid"),
+                                  group=world.data_group if world else None)
         for k, meter in vmeters.items():
             meter.update(float(m[k]), float(m["count"]))
         if max_steps and vidx + 1 >= max_steps:
             break
-    return {k: meter.avg for k, meter in vmeters.items()}
+    out = {k: meter.avg for k, meter in vmeters.items()}
+    out["count"] = vmeters["loss"].count
+    return out

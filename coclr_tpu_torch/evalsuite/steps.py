@@ -17,6 +17,15 @@ coclr_tpu/evalsuite/steps.py (the reference's eval/main_classifier.py).
   the ranks (the JAX step's pmean; with the backbone frozen only the head
   takes part), and averages the metrics; the eval step sums its metrics
   and count over the ranks before it divides (the JAX step's psum).
+- Under sequence parallelism (ops/seqpar.py) a member takes its T chunk of
+  its data shard's clips. The train preprocess runs on that chunk at full
+  H, since the contrast mean is per frame, and the member cuts its H rows
+  after it (`preprocess_train`'s `h_chunk`; the JAX step's slice after its
+  H-replicated upload). DDP still averages over every rank, which is exact
+  through sp_pmean's transpose, and the replicated metrics' mean over
+  every rank is their mean over the data shards. Eval clips are cut in T
+  and H before the pixel-local `preprocess_eval`, and the eval step sums
+  over the data group only, so each data shard's rows count once.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from coclr_tpu_torch.ops.augment import (apply_eval_jitter,
                                          draw_eval_jitter_params, normalize)
 from coclr_tpu_torch.parallel.dist import all_mean_dict, all_sum
 from coclr_tpu_torch.parallel.train_step import to_ncdhw
+from coclr_tpu_torch.train.pretrain import member_chunk
 
 TRAIN_JITTER = dict(p=0.3, strength=(0.4, 0.4, 0.4, 0.1))
 
@@ -85,9 +95,14 @@ def apply_train_preprocess(seq_u8, params: Dict[str, torch.Tensor],
     return apply_eval_jitter(x, params, dtype)
 
 
-def preprocess_train(seq_u8, gen: torch.Generator, dtype=torch.bfloat16):
-    return apply_train_preprocess(
+def preprocess_train(seq_u8, gen: torch.Generator, dtype=torch.bfloat16,
+                     h_chunk=(0, 1)):
+    """The train preprocess of `seq_u8` [B, T, H, W, 3] on gen's draws; with
+    `h_chunk` (index, parts) only rows [index * H / parts, (index + 1) * H /
+    parts) of the result, cut after the preprocess ran at full H."""
+    x = apply_train_preprocess(
         seq_u8, draw_train_preprocess(gen, seq_u8.shape[0]), dtype)
+    return member_chunk({"seq": x}, 2, *h_chunk)["seq"]
 
 
 def preprocess_eval(seq_u8, dtype=torch.bfloat16):
@@ -127,7 +142,8 @@ def eval_step(model, x, label, valid=None, group=None):
     over the rows where `valid` ([B] of 0 / 1, default all) is 1, so padded
     rows do not count; with a process `group`, over the valid rows of
     every rank. Returns (metrics {'loss', 'top1', 'top5', 'count'}, this
-    rank's logits, feature)."""
+    rank's logits, feature). Under sequence parallelism `group` is the
+    data group: the members of a data shard hold the same rows."""
     model.eval()
     logits, feat = model(to_ncdhw(x))
     label = label.long()

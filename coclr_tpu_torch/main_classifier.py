@@ -7,17 +7,19 @@ reference's eval/main_classifier.py flags plus the JAX package's knobs).
 torchrun) or cpu. Training also runs on N cards, one process each:
 
     torchrun --nproc_per_node N -m coclr_tpu_torch.main_classifier \
-        --train_what ft|last|all [flags]
+        --train_what ft|last|all [--sp_size S] [--sph_size H] [flags]
 
-with `--batch_size` per card, `--dist-backend` (nccl, or gloo when asked;
-the CPU is always gloo) and `--num_devices` (when set, it must equal
-WORLD_SIZE) acted on. The --test paths run in one process, as they do on
-one device in the JAX package, and refuse a launch of several. Accepted
-and ignored: `--gpu`, `--ckpt_format`, reference flags with no effect
-there (`--num_seq`, `--num_fc`, `--eval_freq`, `--reset_lr`, `--cos`),
-and `--sp_size` / `--sph_size`: the classifier does not act on sequence
-parallelism yet (pretraining does, coclr_tpu_torch/main_nce.py), so a run
-with them is an unsharded run.
+with `--batch_size` per data shard, `--dist-backend` (nccl, or gloo when
+asked; the CPU is always gloo), `--num_devices` (when set, it must equal
+WORLD_SIZE) and sequence parallelism acted on: `--sp_size S` /
+`--sph_size H` shard each clip's T / H axis over S x H ranks (which must
+divide the launch) in training and validation (ops/seqpar.py), the
+global batch being batch_size x WORLD_SIZE / (S x H). The --test paths
+run in one process, unsharded, as they do in the JAX package, and refuse
+a launch of several; a one-process --test with --sp_size runs unsharded.
+Accepted and ignored: `--gpu`, `--ckpt_format` and reference flags with
+no effect there (`--num_seq`, `--num_fc`, `--eval_freq`, `--reset_lr`,
+`--cos`).
 
   train:      --train_what last|ft|all [--pretrain <pretrain .pth.tar>]
   retrieval:  --test <pretrain .pth.tar> --retrieval [--dirname feature]
@@ -68,10 +70,13 @@ def parse_args(argv=None):
     parser.add_argument('--eval_freq', default=1, type=int)
     parser.add_argument('--reset_lr', action='store_true')
     parser.add_argument('--cos', action='store_true')
-    parser.add_argument('--sp_size', default=1, type=int)
-    parser.add_argument('--sph_size', default=1, type=int)
     parser.add_argument('--ckpt_format', default='flax', type=str)
     # acted on by the port
+    parser.add_argument('--sp_size', default=1, type=int,
+                        help='ranks that share each clip along T (training '
+                             'and validation; the test paths run unsharded)')
+    parser.add_argument('--sph_size', default=1, type=int,
+                        help='ranks that share each clip along H')
     parser.add_argument('--dist-backend', default='nccl', type=str,
                         choices=['nccl', 'gloo'])
     parser.add_argument('--num_devices', default=0, type=int,
@@ -103,12 +108,14 @@ def cfg_from_args(args):
         prefix=args.prefix, max_windows=args.max_windows,
         compute_dtype=args.compute_dtype, data_root=args.data_root,
         worker_mode=args.worker_mode, dist_backend=args.dist_backend,
-        num_devices=args.num_devices)
+        num_devices=args.num_devices, sp_size=args.sp_size,
+        sph_size=args.sph_size)
 
 
 def run_test(cfg, device, dirname=None):
     """--test: retrieval from a pretraining checkpoint, or the N-crop test
-    of a classifier checkpoint, in one process."""
+    of a classifier checkpoint, in one process and unsharded (cfg.sp_size
+    and cfg.sph_size do not apply)."""
     from coclr_tpu_torch.data import hostaug
     from coclr_tpu_torch.evalsuite import driver, ncrop, retrieval
     from coclr_tpu_torch.parallel import dist

@@ -12,6 +12,12 @@ With `freeze_backbone` (the linear probe), the backbone takes no gradient
 and stays in eval mode whatever `train()` is asked for, while final_bn
 trains (the reference's model.eval() + final_bn.train()); its forward runs
 without autograd, so no backward runs through it.
+
+Under sequence parallelism (`sp`, ops/seqpar.py) the backbone runs on this
+member's T and H chunk and the pooled feature is the mean of the members'
+means (sp_pmean), as in models/encoder.py: every member holds the same
+feature, so the head (L2 norm, final_bn, dropout, final_fc) needs no sync.
+A frozen backbone still runs its halos and sp_pmeans, without autograd.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 from coclr_tpu_torch.backbones import select_backbone
 from coclr_tpu_torch.backbones.norm import FoldedBatchNorm1d
 from coclr_tpu_torch.models.encoder import init_backbone_
+from coclr_tpu_torch.ops.seqpar import sp_pmean
 
 
 def dropout(h, rate: float, gen: Optional[torch.Generator]):
@@ -41,11 +48,12 @@ class LinearClassifier(nn.Module):
                  dropout: float = 0.5, use_dropout: bool = True,
                  use_l2_norm: bool = False, use_final_bn: bool = False,
                  freeze_backbone: bool = False, dtype=torch.bfloat16,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, sp=None):
         super().__init__()
         if gen is None:
             gen = torch.Generator().manual_seed(0)
-        self.backbone, param = select_backbone(network, dtype=dtype)
+        self.sp = sp
+        self.backbone, param = select_backbone(network, dtype=dtype, sp=sp)
         fs = param["feature_size"]
         self.dropout = dropout if use_dropout else 0.0
         self.use_l2_norm = use_l2_norm
@@ -72,7 +80,8 @@ class LinearClassifier(nn.Module):
         mode, with its mask drawn from `drop_gen`."""
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not self.freeze_backbone):
-            feat = self.backbone(x).to(torch.float32).mean(dim=(2, 3, 4))
+            feat = sp_pmean(self.backbone(x).to(torch.float32)
+                            .mean(dim=(2, 3, 4)), self.sp)
         if self.use_l2_norm:
             feat = feat / torch.clamp_min(
                 torch.linalg.vector_norm(feat, dim=-1, keepdim=True), 1e-12)

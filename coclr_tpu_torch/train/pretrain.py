@@ -180,15 +180,19 @@ class NullSink:
 
 
 # each rank's per-step draws are seeded apart by this stride, rank 0 as one
-# process; the shared permutation's seed is offset by SHUFFLE_SEED
-RANK_SEED_STRIDE = 1 << 32
-SHUFFLE_SEED = 1 << 62
+# process; the shared permutation's seed is offset by SHUFFLE_SEED. Seeds
+# live in 32 bits: torch's CPU generator (the host's, and a CPU run's) reads
+# only the low 32 bits of a seed, so offsets above them would be dropped
+# and every rank would draw alike. Both constants are odd and far apart
+# modulo 2^32 (Knuth's multiplicative hash, the fraction of sqrt(2)).
+RANK_SEED_STRIDE = 0x9E3779B1
+SHUFFLE_SEED = 0x6A09E667
 
 
 def step_seed(seed: int, iteration: int, rank: int = 0) -> int:
     """The seed of a data rank's draws at `iteration` (rank 0: the
-    one-process seed)."""
-    return seed * 1_000_003 + iteration + rank * RANK_SEED_STRIDE
+    one-process seed), in 32 bits."""
+    return (seed * 1_000_003 + iteration + rank * RANK_SEED_STRIDE) % (1 << 32)
 
 
 CLIP_DIMS = 3  # clip leaves [B, 2, T, H, W, 3] have at least this many dims
@@ -374,12 +378,12 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                 drop_self = bool(torch.rand((), generator=self_gen) < 0.9)
                 perm = None
                 if shuffle == "gather":
-                    perm_gen.manual_seed(step_seed(cfg.seed, iteration)
-                                         + SHUFFLE_SEED)
+                    perm_gen.manual_seed((step_seed(cfg.seed, iteration)
+                                          + SHUFFLE_SEED) % (1 << 32))
                     perm = draw_shuffle(perm_gen, global_batch)
                 elif shuffle == "alltoall":
-                    perm_gen.manual_seed(step_seed(cfg.seed, iteration, rank)
-                                         + SHUFFLE_SEED)
+                    perm_gen.manual_seed((step_seed(cfg.seed, iteration, rank)
+                                          + SHUFFLE_SEED) % (1 << 32))
                     perm = draw_shuffle_alltoall(perm_gen, cfg.batch_size)
                 with profiling.step_annotation("train", iteration):
                     batch = preprocess(batch, gen, sp_ctx)

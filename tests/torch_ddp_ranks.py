@@ -1,7 +1,8 @@
 """Rank processes for the port's data- and sequence-parallel tests
 (tests/test_torch_ddp.py, tests/test_torch_seqpar.py, tests/test_torch_cuda.py).
 
-`RankPool(world, tmpdir)` spawns `world` processes that join one gloo
+`RankPool(world, tmpdir)` starts `world` processes (forked from a server
+that has imported torch) that join one gloo
 process group (a file store under `tmpdir`) through
 coclr_tpu_torch.parallel.dist and then serve tasks: `pool.run(name,
 kwargs)` runs the task `name` on every rank (kwargs the same for all, or
@@ -22,11 +23,18 @@ import traceback
 import numpy as np
 
 TIMEOUT_S = 300
+# imported once in the fork server, so that each rank process starts from
+# a process that has them (torch and DistributedDataParallel take about
+# 3.5 s to import on one core) rather than importing them itself
+PRELOAD = ["torch", "torch.distributed.tensor", "torch.nn.parallel",
+           "coclr_tpu_torch.parallel.dist", "coclr_tpu_torch.evalsuite.driver",
+           "coclr_tpu_torch.models.moco"]
 
 
 class RankPool:
     def __init__(self, world: int, tmpdir: str):
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(PRELOAD)
         init = "file://" + os.path.join(tmpdir, "ddp_store")
         self.world = world
         self.inq = [ctx.Queue() for _ in range(world)]
@@ -84,7 +92,12 @@ def serve(rank, world, init_method, inq, outq):
     while True:
         item = inq.get()
         if item is None:
-            return
+            # every result is delivered: leave without the interpreter's
+            # teardown of torch and the process groups (about a second a
+            # process on one core)
+            outq.close()
+            outq.join_thread()
+            os._exit(0)
         name, kwargs = item
         try:
             outq.put((rank, True, TASKS[name](w, solo, **kwargs)))
@@ -256,7 +269,7 @@ def task_classifier(world, solo, *, cfg, sd, xs, labels, lr, val_samples):
                     process_shard=(world.rank, world.size))
     rows = [list(np.asarray(b["valid"])) for b in loader]
     val = driver.validate(model, loader, cfg, torch.device("cpu"),
-                          group=world.group)
+                          world=world)
     opt = steps.make_classifier_optimizer(cfg, model)
     ddp = wrap(model, world)
     metrics = []
@@ -493,9 +506,96 @@ def task_sp_run_pretrain(world, solo, *, cfg, workdir, batches):
                 queue_ptr=int(model.queue_ptr))
 
 
+def task_sp_classifier(world, solo, *, sp, sph, cfg, sd, num_class, lr,
+                       xs=(), labels=(), val=None):
+    """The classifier (train_what per cfg, num_class classes) in a (data,
+    sp, sph) grid from state dict sd: a train step on each of `xs`, the
+    preprocessed global batches [n_data x B, T, S, S, 3] with their
+    labels, each rank on its data shard's block cut to its T and H chunk
+    (DDP over every rank); then, with `val` (a global uint8 batch with
+    labels and valid rows), the eval step on the same block, cut in T and
+    H before preprocess_eval and summed over the data group. Returns the
+    metrics and the state after the steps, the eval metrics and this
+    rank's logits."""
+    import torch
+
+    from coclr_tpu_torch.config import EvalConfig
+    from coclr_tpu_torch.evalsuite import steps
+    from coclr_tpu_torch.models.classifier import LinearClassifier
+    from coclr_tpu_torch.parallel import dist as pdist
+
+    w = _seq_world(world, sp, sph)
+    cfg = EvalConfig(**cfg)
+    last = cfg.train_what == "last"  # driver.build_model's policy
+    model = LinearClassifier(
+        num_class=num_class, network=cfg.net, dropout=cfg.dropout,
+        use_dropout=not last, use_l2_norm=last, use_final_bn=last,
+        freeze_backbone=last, dtype=cfg.dtype, sp=w.seqpar)
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()}, strict=True)
+    opt = steps.make_classifier_optimizer(cfg, model)
+    ddp = pdist.wrap(model, w)
+    d = w.data_rank
+
+    def mine(batch):
+        b = len(batch["label"]) // w.n_data
+        out = {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
+        out["seq"] = np.ascontiguousarray(_member(out["seq"], w, 1, 2))
+        return out
+
+    metrics = []
+    for x, label in zip(xs, labels):
+        block = mine({"seq": x, "label": label})
+        m = steps.train_step(model, opt, torch.from_numpy(block["seq"]),
+                             torch.from_numpy(block["label"]).long(), lr,
+                             ddp=ddp)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics, "state": _np_state(model)}
+    if val is not None:
+        block = _tensors(mine(val), "cpu")
+        m, logits, _ = steps.eval_step(
+            model, steps.preprocess_eval(block["seq"], cfg.dtype),
+            block["label"], block["valid"], group=w.data_group)
+        out["eval"] = {k: float(v) for k, v in m.items()}
+        out["logits"] = logits.numpy()
+    return out
+
+
+def task_run_classifier(world, solo, *, cfg, workdir, train, val,
+                        max_steps=0):
+    """run_classifier_train in `workdir` on in-memory datasets of samples
+    {'seq': [1, T, S, S, 3] uint8, 'label'}. Returns its validation means,
+    step count, the state, a digest of the parameters and what rank 0
+    printed, or the name and message of the exception it raised."""
+    import contextlib
+    import hashlib
+    import io
+
+    from coclr_tpu_torch.config import EvalConfig
+    from coclr_tpu_torch.evalsuite.driver import run_classifier_train
+
+    os.chdir(workdir)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            model, _, info = run_classifier_train(
+                EvalConfig(**cfg), _Samples(train), _Samples(val),
+                max_steps=max_steps, device="cpu")
+    except Exception as e:  # the caller checks which ranks raised what
+        return {"raised": type(e).__name__, "message": str(e)}
+    digest = hashlib.sha256()
+    for t in model.parameters():
+        digest.update(t.detach().numpy().tobytes())
+    return {"val": info["val"], "steps": len(info["step_s"]),
+            "state": _np_state(model), "digest": digest.hexdigest(),
+            "printed": printed.getvalue(), "exp_path": info["exp_path"]}
+
+
 TASKS = {"pretrain": task_pretrain, "alltoall": task_alltoall,
          "world_one": task_world_one,
          "classifier": task_classifier, "run_pretrain": task_run_pretrain,
          "sp_prims": task_sp_prims, "sp_encoder": task_sp_encoder,
          "sp_pretrain": task_sp_pretrain,
-         "sp_run_pretrain": task_sp_run_pretrain}
+         "sp_run_pretrain": task_sp_run_pretrain,
+         "sp_classifier": task_sp_classifier,
+         "run_classifier": task_run_classifier}
