@@ -126,10 +126,26 @@ non-zero exit on failure:
    checked to be pretraining's), and kernel 1 at the sp launch (F =
    1024, gray on) and at the classifier's (F = 512, gray off). The ranks
    time-slice one card: their times are not scaling numbers;
-13. one JSON line {"kernels": [...]} with each kernel's launches (per path
+13. drive: the CoCLR recipe through the port's CLIs (python -m
+   coclr_tpu_torch.tools.drive_coclr_cycle, in a subprocess) at full S3D
+   width (seq_len 32, img_dim 128, batch 32) with moco-k 128, one epoch a
+   phase on a learnable synthetic UCF of 224 train and 32 test videos (7
+   steps; the queue fills after 4, so CoCLR's steps 5-7 train with the gate
+   open): the two InfoNCE inits, FlowMining, RGBMining --reverse and four
+   retrievals (--max_windows 1), each CLI a process of its own. Every
+   phase exits 0 with progress lines, both CoCLR logs carry Self-acc@1,
+   FlowMining's sampler is the flow init's encoder_q bit for bit and its
+   encoder_q moved off the RGB init's, RGBMining's sampler is FlowMining's
+   encoder_q and its encoder_q moved off the flow init's, all four R@1 lie
+   in [0, 1] (encoder_q moves only in a gate-open step: a gated step runs
+   the backward and skips the optimizer step), and each process launched
+   the kernels its steps need (COCLR_KERNEL_COUNTS: jitter once a training
+   step and pool1d_bwd 37 times, gated or not; in retrieval jitter once
+   per 32 clips and no pool); its wall time and each process's;
+14. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
    bound;
-14. last line: {"ok": true, "device": {...}}.
+15. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the coclr_tpu_torch package beside it, it exits
 non-zero and prints no result. Scratch data goes to build/chip_smoke and is
@@ -2125,6 +2141,113 @@ def classifier_sp_results(dev, out, ranks, wrote, paths, card):
     return {"paths": new, "shapes": shapes}
 
 
+# the drive phase: the recipe at full S3D width, one epoch a phase. 4 classes
+# x 7 train groups x 8 clips = 224 train videos = 7 steps of 32; a queue of
+# 128 fills after 4, so CoCLR's steps 5-7 train with the gate open
+DRIVE_K, DRIVE_TRAIN, DRIVE_TEST = 128, 224, 32
+DRIVE_FLAGS = ["--seq_len", str(T), "--img_dim", str(S), "--batch_size",
+               str(B), "--moco_k", str(DRIVE_K), "--n_classes", "4",
+               "--n_groups", "8", "--n_clips", "8", "--test_groups", "1",
+               "--epochs_nce", "1", "--epochs_coclr", "1", "--cycles", "1",
+               "--skip_downstream", "--retrieval_max_windows", "1",
+               "--workers", "8"]
+DRIVE_TRAIN_TAGS = {"cyc_nce_rgb": "nce_rgb", "cyc_nce_flow": "nce_flow",
+                    "cyc_cf": "coclr_flowmining", "cyc_cr": "coclr_rgbmining"}
+DRIVE_RETRIEVALS = ("retrieval_rgb_init", "retrieval_flow_init",
+                    "retrieval_rgb_coclr", "retrieval_flow_coclr")
+
+
+def drive_counts(path):
+    """{phase tag: launch counts} from the lines the drive's CLI processes
+    wrote at exit (kernels/build.py write_counts)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            argv = rec["argv"][1:]
+            if "--prefix" in argv:
+                tag = DRIVE_TRAIN_TAGS[argv[argv.index("--prefix") + 1]]
+            else:
+                tag = os.path.basename(
+                    argv[argv.index("--dirname") + 1])[len("feat_"):]
+            check(tag not in out, f"two processes for drive phase {tag}")
+            out[tag] = rec["counts"]
+    return out
+
+
+def phase_drive(work):
+    """The CoCLR recipe drive (python -m
+    coclr_tpu_torch.tools.drive_coclr_cycle, DRIVE_FLAGS) in a subprocess:
+    staging, the two InfoNCE inits, FlowMining, RGBMining --reverse and the
+    four retrievals, each through the port's CLI in a process of its own
+    (COCLR_KERNEL_COUNTS collects each one's launches). Checks every phase,
+    Self-acc@1 in both CoCLR logs, the checkpoint chain bit for bit, the
+    four R@1 and each process's launches."""
+    import torch
+    from coclr_tpu_torch.evalsuite.retrieval import CLIP_BATCH
+    from coclr_tpu_torch.kernels import build
+    from coclr_tpu_torch.tools import drive_coclr_cycle as drive
+
+    torch.cuda.empty_cache()
+    wd = os.path.join(work, "cyc")
+    counts_file = os.path.join(work, "drive_counts.jsonl")
+    log = os.path.join(work, "drive.log")
+    env = dict(os.environ, **{build.COUNTS_ENV: counts_file})
+    t0 = time.time()
+    with open(log, "w") as f:
+        p = subprocess.run(
+            [sys.executable, "-m", "coclr_tpu_torch.tools.drive_coclr_cycle",
+             "--workdir", wd, *DRIVE_FLAGS],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=f, stderr=subprocess.STDOUT, timeout=600)
+    wall = time.time() - t0
+    with open(log) as f:
+        text = f.read()
+    check(p.returncode == 0, f"the drive failed (rc {p.returncode}):\n"
+          f"{text[-6000:]}")
+    with open(drive.report_path(wd, "DRIVE_coclr_cycle")) as f:
+        phases = json.load(f)["phases"]
+    logs = {}
+    for tag in list(DRIVE_TRAIN_TAGS.values()) + list(DRIVE_RETRIEVALS):
+        with open(os.path.join(wd, "drivelogs", f"{tag}.log")) as f:
+            logs[tag] = f.read()
+    for tag in DRIVE_TRAIN_TAGS.values():
+        check(drive.parse_epochs(logs[tag]), f"no progress lines in {tag}")
+    for tag in ("coclr_flowmining", "coclr_rgbmining"):
+        check(drive.SELF_RE.findall(logs[tag]), f"no Self-acc@1 in {tag}")
+    recall = {tag: phases[tag].get("R@1") for tag in DRIVE_RETRIEVALS}
+    check(all(r is not None and 0.0 <= r <= 1.0 for r in recall.values()),
+          f"retrieval R@1 {recall}")
+    chain, _ = drive.checkpoint_chain(wd)
+    check(all(chain.values()), f"checkpoint chain {chain}")
+
+    # every training step runs the backward (a gated CoCLR step skips only
+    # the optimizer step), so each launches jitter once and the pool 37
+    # times; retrieval launches jitter once per 32 clips and no pool
+    steps = DRIVE_TRAIN // B
+    retr = -(-DRIVE_TRAIN // CLIP_BATCH) - (-DRIVE_TEST // CLIP_BATCH)
+    expect = {tag: {"jitter": steps, "pool1d_bwd": 37 * steps}
+              for tag in DRIVE_TRAIN_TAGS.values()}
+    expect.update({tag: {"jitter": retr, "pool1d_bwd": 0}
+                   for tag in DRIVE_RETRIEVALS})
+    by_phase = drive_counts(counts_file)
+    check(by_phase == expect, f"drive launches {by_phase}, expected {expect}")
+    counts = {name: sum(c[name] for c in by_phase.values())
+              for name in build.KERNELS}
+    secs = {tag: phases[tag]["wall_s"] for tag in expect}
+    print(f"[drive] the recipe (two InfoNCE inits -> FlowMining -> "
+          f"RGBMining --reverse -> 4 retrievals) in {wall:.1f} s, staging "
+          f"{wall - sum(secs.values()):.1f} s of it (budget 240 s); each "
+          f"process: { {k: round(v, 1) for k, v in secs.items()} }",
+          flush=True)
+    gated = DRIVE_K // B
+    print(f"[drive] every phase exited 0 with progress lines; Self-acc@1 "
+          f"logged in both CoCLR phases; checkpoint chain {chain} (encoder_q "
+          f"moves only in the {steps - gated} gate-open steps of {steps}); "
+          f"R@1 {recall}; launches per process {by_phase}", flush=True)
+    return {"counts": counts}
+
+
 def glob_ckpts(root):
     return [os.path.relpath(os.path.join(d, f), root)
             for d, _, files in os.walk(root) for f in files
@@ -2338,6 +2461,7 @@ def main():
         sp_paths, sp = phase_seqpar(dev, work, data_root, card, paths,
                                     unsharded, pretrained)
         paths.update(sp_paths)
+        paths["drive"] = phase_drive(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import cv2
@@ -277,9 +278,10 @@ def make_synthetic_ucf(root: str, n_classes: int = 2, n_groups: int = 2,
     rows = []
     source_map = {}
     source_id = 0
+    groups = []  # learnable content: (class, group, stem, clip frame counts)
     t_start = time.time()
     for ci, cname in enumerate(classes):
-        if progress and ci % 5 == 0:
+        if progress and ci % 5 == 0 and content != "learnable":
             print(f"[synth] class {ci}/{n_classes} "
                   f"({time.time() - t_start:.0f}s)", flush=True)
         for g in range(1, n_groups + 1):
@@ -291,41 +293,63 @@ def make_synthetic_ucf(root: str, n_classes: int = 2, n_groups: int = 2,
                 nfs = [max(4, n_frames // 3)
                        if rng.rand() < short_frac else nf for nf in nfs]
             if content == "learnable":
-                # one long source video per group, sliced into sibling clips
-                # (like the reference's v_*_gXX_cYY segments of one video)
-                g_rng = np.random.RandomState(
-                    (seed * 7919 + ci * 1009 + g * 101) % (2 ** 31))
-                long_rgb = render_learnable_video(ci, n_classes, g_rng,
-                                                  sum(nfs), size, "rgb")
-                long_flow = (render_learnable_video(ci, n_classes, g_rng,
-                                                    sum(nfs), size, "flow")
-                             if flow else None)
-            off = 0
+                groups.append((ci, g, stem, nfs))
+                continue
             for c in range(1, n_clips + 1):
                 vid = "%s_c%02d" % (stem, c)
                 nf = nfs[c - 1]
-                if content == "learnable" and in_memory:
+                _write_video_frames(os.path.join(frames_dir, cname, vid),
+                                    nf, size, rng)
+                if flow:
+                    _write_video_frames(os.path.join(flow_dir, cname, vid),
+                                        max(1, nf - 1), size, rng)
+                rows.append(("/synth/frame/%s/%s/" % (cname, vid), nf, g))
+
+    def render_group(job):
+        # one long source video per group, sliced into sibling clips (like
+        # the reference's v_*_gXX_cYY segments of one video); its own
+        # RandomState, so groups render alike in any order
+        ci, g, _, nfs = job
+        g_rng = np.random.RandomState(
+            (seed * 7919 + ci * 1009 + g * 101) % (2 ** 31))
+        long_rgb = render_learnable_video(ci, n_classes, g_rng, sum(nfs),
+                                          size, "rgb")
+        long_flow = (render_learnable_video(ci, n_classes, g_rng, sum(nfs),
+                                            size, "flow") if flow else None)
+        clips, off = [], 0
+        for nf in nfs:
+            rgb = long_rgb[off:off + nf]
+            fl = long_flow[off:off + max(1, nf - 1)] if flow else None
+            if in_memory:
+                rgb = _encode_frames(rgb)
+                fl = _encode_frames(fl) if flow else None
+            clips.append((rgb, fl))
+            off += nf
+        return clips
+
+    # numpy's large array ops and cv2's JPEG encode release the GIL, so the
+    # groups render on threads (the output does not depend on their count)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for i, (job, clips) in enumerate(zip(groups,
+                                             pool.map(render_group, groups))):
+            ci, g, stem, nfs = job
+            cname = classes[ci]
+            if progress and i % (5 * n_groups) == 0:
+                print(f"[synth] class {ci}/{n_classes} "
+                      f"({time.time() - t_start:.0f}s)", flush=True)
+            for c, ((rgb, fl), nf) in enumerate(zip(clips, nfs), 1):
+                vid = "%s_c%02d" % (stem, c)
+                if in_memory:
                     name = "%s/%s" % (cname, vid)
-                    mem_rgb[name] = _encode_frames(long_rgb[off:off + nf])
+                    mem_rgb[name] = rgb
                     if flow:
-                        mem_flow[name] = _encode_frames(
-                            long_flow[off:off + max(1, nf - 1)])
-                    off += nf
-                elif content == "learnable":
+                        mem_flow[name] = fl
+                else:
                     _write_frames_from_array(
-                        os.path.join(frames_dir, cname, vid),
-                        long_rgb[off:off + nf])
+                        os.path.join(frames_dir, cname, vid), rgb)
                     if flow:
                         _write_frames_from_array(
-                            os.path.join(flow_dir, cname, vid),
-                            long_flow[off:off + max(1, nf - 1)])
-                    off += nf
-                else:
-                    _write_video_frames(os.path.join(frames_dir, cname, vid),
-                                        nf, size, rng)
-                    if flow:
-                        _write_video_frames(os.path.join(flow_dir, cname, vid),
-                                            max(1, nf - 1), size, rng)
+                            os.path.join(flow_dir, cname, vid), fl)
                 rows.append(("/synth/frame/%s/%s/" % (cname, vid), nf, g))
 
     with open(os.path.join(meta_dir, "ClassInd.txt"), "w") as f:

@@ -8,16 +8,24 @@ nvcc flags, so a change to any of them builds a new library. Nothing is
 built or loaded at import time: the first launch builds its library, and
 `build_all` builds every library at once with one nvcc process per source,
 all started together.
+
+With COCLR_KERNEL_COUNTS=<file> in its environment, a process appends its
+launch counts to that file as one JSON line when it exits (`write_counts`):
+how a parent reads the launches of the entry points it runs as
+subprocesses.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 from typing import Dict, List, Sequence
 
@@ -166,3 +174,16 @@ def build_all() -> None:
 def reset_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+
+
+def write_counts(path: str) -> None:
+    """Append {"argv", "counts"} of this process to `path`."""
+    line = json.dumps({"argv": sys.argv, "counts": {
+        name: k.launches for name, k in KERNELS.items()}})
+    with open(path, "a") as f:
+        f.write(line + "\n")
+
+
+COUNTS_ENV = "COCLR_KERNEL_COUNTS"
+if os.environ.get(COUNTS_ENV):
+    atexit.register(write_counts, os.environ[COUNTS_ENV])

@@ -220,13 +220,50 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 30
 
 
+def _reference_scripts():
+    """Module names of the repository's tools/, eval/ and root scripts (the
+    JAX package's command lines), and the two directories themselves."""
+    names = {"tools", "eval"}
+    for d in ("tools", "eval", ""):
+        names |= {os.path.splitext(f)[0] for f in
+                  os.listdir(os.path.join(REPO, d)) if f.endswith(".py")}
+    return names - {"chip_smoke"}
+
+
+def _boundary_hits(text, in_package):
+    """Lines of `text` that cross the port's import boundary: an import of
+    jax, flax, optax or coclr_tpu; an import of a tools/, eval/ or root
+    script; a sys.path / PYTHONPATH entry naming tools/ or eval/; and, in
+    the package, any sys.path change at all."""
+    names = "|".join(sorted(map(re.escape, _reference_scripts())))
+    imports = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|coclr_tpu|%s)"
+        r"(\.|\s|,|$)" % names, re.M)
+    hits = [m.group(0).strip() for m in imports.finditer(text)]
+    for line in text.splitlines():
+        path_change = re.search(r"sys\.path\.|addsitedir|PYTHONPATH", line)
+        if path_change and (in_package or re.search(r"tools|eval", line)):
+            if in_package and "PYTHONPATH" in line \
+                    and not re.search(r"tools|eval", line):
+                continue  # a child process's path to the repository
+            hits.append(line.strip())
+    return hits
+
+
 def test_source_scan_finds_no_jax_or_coclr_tpu_import():
-    pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|coclr_tpu)(\.|\s|$)", re.M)
+    """No module of the port, and not chip_smoke.py, imports jax or
+    coclr_tpu, or imports from (or puts on sys.path) the repository's
+    tools/, eval/ or root command lines; the scan catches the JAX
+    summarizer's own `sys.path.insert` + `from drive_coclr_cycle import`."""
     files = glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-    files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 30
-    for path in files:
+    assert {"drive_coclr_cycle", "main_classifier", "main_nce",
+            "eval"} <= _reference_scripts()
+    for path in files + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as f:
-            hit = pattern.search(f.read())
-        assert hit is None, (path, hit and hit.group(0))
+            hits = _boundary_hits(f.read(), path.startswith(PORT))
+        assert hits == [], (path, hits)
+    with open(os.path.join(REPO, "tools", "summarize_coclr_drive.py")) as f:
+        copied = _boundary_hits(f.read(), in_package=True)
+    assert sorted(copied) == ["from drive_coclr_cycle", "sys.path.insert(0, "
+                              "os.path.dirname(os.path.abspath(__file__)))"]
