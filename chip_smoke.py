@@ -16,6 +16,10 @@ non-zero exit on failure:
    channel-planar frames and from the channels-last view the main path
    passes; the one-pixel path (9 x 9) and frames too large for shared
    memory (288 x 288); and the null path exactly; timed on both layouts;
+   edge frames (grey ramps, where delta = 0; black, where maxc = 0;
+   white; saturated channels and their pairs; stripes of all) through the
+   eval jitter (apply_eval_jitter, gray off) and the pretrain augmentation
+   (apply_aug, gray on half the clips), at the same cap;
    then at the classifier train preprocess's launch (F = 1024, gray off, a
    channels-last view of the clips after the uint8 flip), timed;
 3. kernel 2 (pool1d_bwd) against its plain version at every launch shape of
@@ -138,7 +142,9 @@ non-zero exit on failure:
    encoder_q moved off the RGB init's, RGBMining's sampler is FlowMining's
    encoder_q and its encoder_q moved off the flow init's, all four R@1 lie
    in [0, 1] (encoder_q moves only in a gate-open step: a gated step runs
-   the backward and skips the optimizer step), and each process launched
+   the backward and skips the optimizer step), each retrieval's features
+   are finite (their health from the drive report is printed: std after
+   centering, effective rank, hub share), and each process launched
    the kernels its steps need (COCLR_KERNEL_COUNTS: jitter once a training
    step and pool1d_bwd 37 times, gated or not; in retrieval jitter once
    per 32 clips and no pool); its wall time and each process's;
@@ -316,6 +322,90 @@ def jitter_case(frames, size, dev, gen, timed, tag="jitter"):
     return r
 
 
+# colours whose hue is undefined or at a branch's edge: black (maxc = 0),
+# white, and the saturated channels and their pairs
+EDGE_COLOURS = ((0, 0, 0), (255, 255, 255), (255, 0, 0), (0, 255, 0),
+                (0, 0, 255), (255, 255, 0), (0, 255, 255), (255, 0, 255))
+
+
+def edge_frames(frames, size, dev):
+    """uint8 [frames, size, size, 3]: frames of one edge colour, grey ramps
+    (R = G = B at every level, so delta = 0), and frames of all of them in
+    stripes, in turn."""
+    import torch
+
+    ramp = (torch.arange(size * size, device=dev) % 256).to(torch.uint8)
+    ramp = ramp.reshape(size, size, 1).expand(size, size, 3)
+    colours = torch.tensor(EDGE_COLOURS, dtype=torch.uint8, device=dev)
+    stripes = colours[torch.arange(size, device=dev) % len(EDGE_COLOURS)]
+    stripes = stripes[:, None].expand(size, size, 3).clone()
+    stripes[::3] = ramp[::3]
+    kinds = [c.expand(size, size, 3) for c in colours] + [ramp, stripes]
+    return torch.stack([kinds[i % len(kinds)] for i in range(frames)])
+
+
+def ulp_share(got, want):
+    """The share of outputs more than one bfloat16 ULP of the plain value
+    off, and the max abs error."""
+    import torch
+
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    diff = (got - want).abs()
+    return float((diff > ulp).float().mean()), float(diff.max())
+
+
+def jitter_edges(dev, gen):
+    """Kernel 1 on edge frames (grey, black, white, saturated channels)
+    against its plain version, through the two callers of the port: the
+    eval jitter (`apply_eval_jitter`, gray off, every clip jittered) and
+    the pretrain augmentation (`apply_aug`, gray on for every other clip;
+    its blur and flip off, so that its output is the kernel's)."""
+    import torch
+    from coclr_tpu_torch.evalsuite.retrieval import EXTRACT_JITTER
+    from coclr_tpu_torch.kernels.jitter import jitter_normalize_plain
+    from coclr_tpu_torch.ops.augment import (apply_aug, apply_eval_jitter,
+                                             draw_aug_params,
+                                             draw_eval_jitter_params)
+
+    b, t = B, 8
+    frames = edge_frames(b * t, S, dev)
+    planar = lambda y: y.reshape(b * t, S, S, 3).permute(0, 3, 1, 2)
+    rep = lambda v, n: v.repeat_interleave(n)
+    p = draw_eval_jitter_params(gen, b, p=1.0,
+                                strength=EXTRACT_JITTER["strength"])
+    got = apply_eval_jitter(frames.reshape(b, t, S, S, 3), p)
+    want = jitter_normalize_plain(
+        planar(frames), rep(p["fb"], t), rep(p["fc"], t), rep(p["fs"], t),
+        rep(p["fh"], t), torch.full((b * t,), -1, dtype=torch.int32,
+                                    device=dev), rep(p["orders"], t))
+    over_eval, err_eval = ulp_share(planar(got).float(), want.float())
+
+    n, L = 2, t // 2
+    m = b * n
+    a = draw_aug_params(gen, torch.ones(b, n, device=dev), L)
+    a["fb"] = torch.where(a["fh"] == 0, 1.3, a["fb"])  # every clip jittered
+    a["fh"] = torch.where(a["fh"] == 0, 0.05, a["fh"])
+    a["do_gray"] = torch.arange(m, device=dev) % 2 == 0
+    a["do_blur"] = torch.zeros(m, dtype=torch.bool, device=dev)
+    a["do_flip"] = torch.zeros(m, dtype=torch.bool, device=dev)
+    got = apply_aug(frames.reshape(b, n, L, S, S, 3), a)
+    gray = torch.where(rep(a["do_gray"], L), a["ch"], -1).to(torch.int32)
+    want = jitter_normalize_plain(
+        planar(frames), rep(a["fb"], L), rep(a["fc"], L), rep(a["fs"], L),
+        rep(a["fh"], L), gray, rep(a["orders"], L))
+    over_aug, err_aug = ulp_share(planar(got).float(), want.float())
+    print(f"[jitter-edges] {b * t} frames of {S} x {S} (grey ramps, black, "
+          f"white, saturated channels, stripes of all): eval jitter "
+          f"{over_eval:.2e} of outputs more than 1 bf16 ULP off, max abs err "
+          f"{err_eval:.4g}; pretrain augmentation (gray on half the clips) "
+          f"{over_aug:.2e}, max abs err {err_aug:.4g} (cap 1e-3)", flush=True)
+    check(over_eval <= 1e-3, "jitter kernel disagrees with its plain version "
+                             "on edge frames in the eval jitter")
+    check(over_aug <= 1e-3, "jitter kernel disagrees with its plain version "
+                            "on edge frames in the pretrain augmentation")
+    return {"max_abs_err": max(err_eval, err_aug)}
+
+
 def phase_jitter(dev):
     import torch
     from coclr_tpu_torch.kernels.jitter import fused_jitter_normalize
@@ -345,6 +435,7 @@ def phase_jitter(dev):
                   f"jitter kernel's null path is not exact at {size} x {size}")
     print("[jitter] null path exact (128, 9 and 288 square; planar and "
           "channels-last)", flush=True)
+    result["edges"] = jitter_edges(dev, gen)
     return result
 
 
@@ -2159,12 +2250,19 @@ DRIVE_RETRIEVALS = ("retrieval_rgb_init", "retrieval_flow_init",
 
 def drive_counts(path):
     """{phase tag: launch counts} from the lines the drive's CLI processes
-    wrote at exit (kernels/build.py write_counts)."""
+    wrote at exit (kernels/build.py write_counts); the drive's own line
+    must count no launch."""
     out = {}
     with open(path) as f:
         for line in f:
             rec = json.loads(line)
             argv = rec["argv"][1:]
+            if "--workdir" in argv:
+                # the drive itself: its feature-health reader imports the
+                # retrieval module and so the wrappers, and launches nothing
+                check(not any(rec["counts"].values()),
+                      f"the drive process launched kernels: {rec['counts']}")
+                continue
             if "--prefix" in argv:
                 tag = DRIVE_TRAIN_TAGS[argv[argv.index("--prefix") + 1]]
             else:
@@ -2182,7 +2280,8 @@ def phase_drive(work):
     four retrievals, each through the port's CLI in a process of its own
     (COCLR_KERNEL_COUNTS collects each one's launches). Checks every phase,
     Self-acc@1 in both CoCLR logs, the checkpoint chain bit for bit, the
-    four R@1 and each process's launches."""
+    four R@1, that each retrieval's features are finite (their health is
+    printed) and each process's launches."""
     import torch
     from coclr_tpu_torch.evalsuite.retrieval import CLIP_BATCH
     from coclr_tpu_torch.kernels import build
@@ -2218,6 +2317,17 @@ def phase_drive(work):
     recall = {tag: phases[tag].get("R@1") for tag in DRIVE_RETRIEVALS}
     check(all(r is not None and 0.0 <= r <= 1.0 for r in recall.values()),
           f"retrieval R@1 {recall}")
+    # the features' health is printed; only their finiteness is checked
+    # (R@k and the spread are a learning signal at one epoch a phase)
+    for tag in DRIVE_RETRIEVALS:
+        h = phases[tag].get("features")
+        check(h is not None, f"no feature health in the report for {tag}")
+        print(f"[drive] {tag} features: " + ", ".join(
+            f"{k} {h[k]:.4g}" if isinstance(h[k], float) else f"{k} {h[k]}"
+            for k in ("nonfinite", "std_min", "std_median",
+                      "effective_rank", "hub_share")), flush=True)
+        check(h["finite"] and not phases[tag].get("nonfinite_features"),
+              f"{tag}: {h['nonfinite']} non-finite feature values")
     chain, _ = drive.checkpoint_chain(wd)
     check(all(chain.values()), f"checkpoint chain {chain}")
 
@@ -2495,6 +2605,7 @@ def main():
              replaces="coclr_tpu/ops/pallas_aug.py:146",
              **launches("jitter"),
              max_abs_err=max(j2["max_abs_err"], j4["max_abs_err"],
+                             jit["edges"]["max_abs_err"],
                              jit_eval["max_abs_err"],
                              sp["jitter"]["max_abs_err"],
                              sp["cls_jitter"]["max_abs_err"]),

@@ -34,6 +34,11 @@ drive's. Where the port differs:
   (`nvidia-smi --query-gpu=name,power.limit`, or "cpu"), and each phase
   run in this launch has its subprocess's seconds (`wall_s`) beside
   `wall_min`.
+- Each retrieval phase also carries `features`, the health of the
+  features it cached in <workdir>/feat_<tag> (evalsuite/feature_health.py:
+  the non-finite count, the per-dimension std after centering, the
+  effective rank, the hub share), and `nonfinite_features: true` where any
+  value is not finite: its R@k then means nothing.
 
 The drive resumes: a phase whose saved log (<workdir>/drivelogs/<tag>.log)
 shows completion is skipped, so an interrupted run relaunches cheaply.
@@ -124,6 +129,24 @@ def parse_epochs(text):
 
 def parse_retrieval(text):
     return {f"R@{k}": float(v) for k, v in NN_RE.findall(text)}
+
+
+def feature_marks(feat_dir):
+    """The report keys of the features a retrieval cached in `feat_dir`
+    (the drive gives each retrieval its own): {'features': their health}
+    and, where any value is not finite, 'nonfinite_features': True (the
+    phase's R@k then means nothing); {} where the directory holds no
+    cache."""
+    from coclr_tpu_torch.evalsuite.feature_health import cache_health
+
+    found = cache_health(feat_dir)
+    if not found:
+        return {}
+    health = found[0]
+    marks = {"features": health}
+    if not health["finite"]:
+        marks["nonfinite_features"] = True
+    return marks
 
 
 def seed_report(out_path, args_dict):
@@ -232,6 +255,39 @@ def card_name(device):
         return "unknown card"
 
 
+def cli_argv(module, argv, device, dtype=True):
+    """`python` arguments of the port's CLI `module` on `device`: every CLI
+    runs there, and on the CPU (where `dtype`) in float32, as the
+    repository holds the port there."""
+    return (["-m", f"coclr_tpu_torch.{module}", *argv]
+            + (["--compute_dtype", "float32"] if dtype and device == "cpu"
+               else []) + ["--device", device])
+
+
+def common_args(args, data_root):
+    """The flags every pretraining phase of the drive shares."""
+    return ["--net", "s3d", "--moco-k", str(args.moco_k),
+            "--seq_len", str(args.seq_len), "--ds", "1",
+            "--batch_size", str(args.batch_size),
+            "--img_dim", str(args.img_dim), "-j", str(args.workers),
+            "--data_root", data_root, "--save_freq", "2",
+            "--seed", str(args.seed),
+            "--num_devices", str(args.num_devices)]
+
+
+def retrieval_args(args, data_root, ckpt, dataset, feat_dir):
+    """main_classifier's flags for the retrieval of `ckpt` on `dataset`,
+    its features cached in `feat_dir`."""
+    return ["--net", "s3d", "--dataset", dataset,
+            "--max_windows", str(args.retrieval_max_windows),
+            "--seq_len", str(args.seq_len), "--ds", "1",
+            "--img_dim", str(args.img_dim),
+            "--batch_size", str(args.batch_size),
+            "--data_root", data_root, "-j", str(args.workers),
+            "--num_devices", str(args.num_devices),
+            "--test", ckpt, "--retrieval", "--dirname", feat_dir]
+
+
 def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workdir", default="/tmp/coclr_cycle")
@@ -313,11 +369,6 @@ def main(argv=None):
     from coclr_tpu_torch.utils import resolve_device
 
     resolve_device(args.device)  # raises when CUDA is asked for and missing
-    # every CLI runs on --device; on the CPU in float32, as the repository
-    # holds the port there
-    dev_args = ["--device", args.device]
-    dtype_args = (["--compute_dtype", "float32"] if args.device == "cpu"
-                  else [])
 
     wd = os.path.abspath(args.workdir)
     os.makedirs(wd, exist_ok=True)
@@ -355,16 +406,9 @@ def main(argv=None):
     os.environ["COCLR_META_ROOT"] = meta_root
 
     def cli(module, *argv, dtype=True):
-        return (["-m", f"coclr_tpu_torch.{module}", *argv]
-                + (dtype_args if dtype else []) + dev_args)
+        return cli_argv(module, argv, args.device, dtype)
 
-    common = ["--net", "s3d", "--moco-k", str(args.moco_k),
-              "--seq_len", str(args.seq_len), "--ds", "1",
-              "--batch_size", str(args.batch_size),
-              "--img_dim", str(args.img_dim), "-j", str(args.workers),
-              "--data_root", data_root, "--save_freq", "2",
-              "--seed", str(args.seed),
-              "--num_devices", str(args.num_devices)]
+    common = common_args(args, data_root)
     log_dir = os.path.join(wd, "drivelogs")
     out_path = report_path(wd, args.out_prefix)
     report, prior_wall_min = seed_report(
@@ -406,20 +450,19 @@ def main(argv=None):
         return text
 
     def retrieval(tag, ckpt, dataset):
+        feat_dir = os.path.join(wd, "feat_" + tag)
         text, wall = run_cli(
             tag, cli("main_classifier",
-                     "--net", "s3d", "--dataset", dataset,
-                     "--max_windows", str(args.retrieval_max_windows),
-                     "--seq_len", str(args.seq_len), "--ds", "1",
-                     "--img_dim", str(args.img_dim),
-                     "--batch_size", str(args.batch_size),
-                     "--data_root", data_root, "-j", str(args.workers),
-                     "--num_devices", str(args.num_devices),
-                     "--test", ckpt, "--retrieval",
-                     "--dirname", os.path.join(wd, "feat_" + tag)),
+                     *retrieval_args(args, data_root, ckpt, dataset,
+                                     feat_dir)),
             wd, log_dir, done_marker="NN acc")
         ph = dict(report["phases"].get(tag, {})) if wall is None else {}
         ph.update(parse_retrieval(text))
+        ph.pop("nonfinite_features", None)
+        ph.update(feature_marks(feat_dir))
+        if ph.get("nonfinite_features"):
+            print(f"[drive] {tag}: {ph['features']['nonfinite']} non-finite "
+                  "feature values: its R@k means nothing", flush=True)
         if wall is None:
             ph["resumed"] = True
         else:

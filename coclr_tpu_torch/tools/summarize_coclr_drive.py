@@ -4,8 +4,11 @@ counterpart of tools/summarize_coclr_drive.py:
 
     python -m coclr_tpu_torch.tools.summarize_coclr_drive --workdir /tmp/cyc
 
-The logs are the source of truth. Both files go beside the drive's report,
-under --workdir unless --out_prefix is absolute.
+The logs are the source of truth, and for each retrieval the feature cache
+it wrote (<workdir>/feat_<tag>), whose health (evalsuite/feature_health.py)
+goes into the report and a table of the markdown; a retrieval over
+non-finite features is marked, since its R@k means nothing. Both files go
+beside the drive's report, under --workdir unless --out_prefix is absolute.
 """
 
 import argparse
@@ -13,7 +16,8 @@ import json
 import os
 import re
 
-from coclr_tpu_torch.tools.drive_coclr_cycle import (SELF_RE, parse_epochs,
+from coclr_tpu_torch.tools.drive_coclr_cycle import (SELF_RE, feature_marks,
+                                                     parse_epochs,
                                                      parse_retrieval,
                                                      report_path)
 
@@ -66,8 +70,9 @@ def main(argv=None):
         path = os.path.join(logs, f"{tag}.log")
         if not os.path.exists(path):
             continue
-        report["phases"].setdefault(tag, {}).update(
-            parse_retrieval(open(path).read()))
+        ph = report["phases"].setdefault(tag, {})
+        ph.update(parse_retrieval(open(path).read()))
+        ph.update(feature_marks(os.path.join(args.workdir, "feat_" + tag)))
 
     # optional downstream-eval extension: linear probes on the cycle
     # checkpoints (eval/main_classifier.py --train_what last), their N-crop
@@ -176,7 +181,24 @@ def main(argv=None):
         ph = report["phases"].get(tag, {})
         if "R@1" in ph:
             lines.append(f"| {tag.replace('retrieval_', '')} | "
-                         f"{ph['R@1']:.3f} | {ph.get('R@5', float('nan')):.3f} |")
+                         f"{ph['R@1']:.3f} | {ph.get('R@5', float('nan')):.3f} |"
+                         + (" non-finite features: R@k means nothing |"
+                            if ph.get("nonfinite_features") else ""))
+    healths = [(tag, report["phases"][tag]["features"]) for tag in RETR_PHASES
+               if "features" in report["phases"].get(tag, {})]
+    if healths:
+        lines += ["", "Feature health of each retrieval's cached features "
+                  "(evalsuite/feature_health.py: std per dimension after "
+                  "centering, effective rank, the largest share of queries "
+                  "with one top-1 train video):", "",
+                  "| model | non-finite | std min | std median | "
+                  "effective rank | hub share |", "|---|---|---|---|---|---|"]
+        for tag, h in healths:
+            nums = ([f"{h[k]:.4g}" for k in ("std_min", "std_median",
+                                               "effective_rank", "hub_share")]
+                    if h["finite"] else ["-"] * 4)
+            lines.append(f"| {tag.replace('retrieval_', '')} | "
+                         f"{h['nonfinite']} | " + " | ".join(nums) + " |")
     for mod in ("rgb", "flow"):
         for kind, desc in (("probe", "linear probe (`--train_what last`, "
                                      "frozen backbone)"),

@@ -15,6 +15,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -438,6 +439,162 @@ def test_summarize_scale_drive_matches_the_jax_one(coclr_log, tmp_path):
     assert (tmp_path / "DRIVE_k4test.md").exists()
 
 
+# ------------------------------------------------------------ feature health
+
+
+def _health_case(case):
+    """(train, test) features of one failure the health reader must name."""
+    rng = np.random.default_rng(11)
+    if case == "constant":
+        return np.full((20, 8), 3.0), np.full((6, 8), 3.0)
+    if case == "one_nan_row":
+        train = rng.standard_normal((20, 8))
+        train[3] = np.nan
+        return train, rng.standard_normal((6, 8))
+    if case == "planted_hub":
+        # 80 % of the queries lie along +u after centering; train row 7 is
+        # the one train video along +u
+        u = np.eye(16)[0]
+        sign = np.where(np.arange(40) % 5 == 0, -1.0, 1.0)
+        test = sign[:, None] * u + 0.05 * rng.standard_normal((40, 16))
+        train = rng.standard_normal((60, 16))
+        train[7] += 20.0 * u
+        return train, test
+    return rng.standard_normal((200, 16)), rng.standard_normal((50, 16))
+
+
+@pytest.mark.parametrize("case", ["constant", "one_nan_row", "planted_hub",
+                                  "healthy"])
+def test_feature_health_names_each_case(case):
+    """The reader's numbers on constant features (no spread, rank 0, one
+    hub for every query), one NaN row (counted; every centered row NaN,
+    so no other number), a planted hub, and healthy random features."""
+    from coclr_tpu_torch.evalsuite.feature_health import feature_health
+    from coclr_tpu_torch.evalsuite.retrieval import center_normalize
+
+    train, test = _health_case(case)
+    h = feature_health(train, test)
+    assert (h["n_train"], h["n_test"], h["dim"]) == (
+        len(train), len(test), train.shape[1])
+    if case == "one_nan_row":
+        assert np.isnan(center_normalize(train.astype(np.float32))).all()
+        assert h["nonfinite"] == 8 and h["finite"] is False
+        assert all(h[k] is None for k in ("std_min", "std_median",
+                                          "effective_rank", "hub_share"))
+        return
+    assert h["nonfinite"] == 0 and h["finite"] is True
+    if case == "constant":
+        assert h["std_min"] == h["std_median"] == 0.0
+        assert h["effective_rank"] == 0.0 and h["hub_share"] == 1.0
+    elif case == "planted_hub":
+        assert h["hub_share"] == 0.8 and h["hub_index"] == 7
+    else:
+        assert 0.9 < h["std_min"] <= h["std_median"] < 1.1
+        assert 14.0 < h["effective_rank"] <= 16.0
+        assert h["hub_share"] < 0.2
+
+
+def test_drive_report_marks_nonfinite_features(tmp_path):
+    """A retrieval whose feature cache holds one NaN row: the drive's
+    report keys and the summarizer's report carry the count and the mark,
+    and the markdown says its R@k means nothing; the finite retrieval
+    beside it carries its health and no mark. nn_retrieval still prints
+    the lines both packages' parsers read."""
+    from coclr_tpu_torch.evalsuite.retrieval import (nn_retrieval,
+                                                     save_feature_cache)
+
+    bad, good = _health_case("one_nan_row"), _health_case("healthy")
+    logs = tmp_path / "drivelogs"
+    logs.mkdir()
+    for tag, (train, test) in (("retrieval_rgb_init", bad),
+                               ("retrieval_flow_init", good)):
+        labels = lambda n: np.arange(n) % 4
+        for split, f in (("train", train), ("test", test)):
+            save_feature_cache(str(tmp_path / f"feat_{tag}"), "ucf101",
+                               split, f.astype(np.float32), labels(len(f)),
+                               [f"v{i}" for i in range(len(f))])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            for k, acc in nn_retrieval(test, labels(len(test)), train,
+                                       labels(len(train))).items():
+                print("%dNN acc = %.4f" % (k, acc))
+        (logs / f"{tag}.log").write_text(out.getvalue())
+        assert set(drive_coclr_cycle.parse_retrieval(out.getvalue())) == {
+            "R@1", "R@5", "R@10", "R@20", "R@50"}
+
+    marks = drive_coclr_cycle.feature_marks(
+        str(tmp_path / "feat_retrieval_rgb_init"))
+    assert marks["nonfinite_features"] is True
+    assert marks["features"]["nonfinite"] == 8
+    assert drive_coclr_cycle.feature_marks(str(tmp_path / "none")) == {}
+    summarize_coclr_drive.main(["--workdir", str(tmp_path)])
+    rep = json.loads((tmp_path / "DRIVE_coclr_cycle.json").read_text())
+    assert rep["phases"]["retrieval_rgb_init"]["nonfinite_features"] is True
+    assert rep["phases"]["retrieval_rgb_init"]["features"] == marks["features"]
+    flow = rep["phases"]["retrieval_flow_init"]
+    assert "nonfinite_features" not in flow and flow["features"]["finite"]
+    md = (tmp_path / "DRIVE_coclr_cycle.md").read_text()
+    assert re.search(r"\| rgb_init \|.*non-finite features: R@k means nothing",
+                     md)
+    assert re.search(r"\| rgb_init \| 8 \| - \| - \| - \| - \|", md)
+    assert not re.search(r"\| flow_init \|.*R@k means nothing", md)
+
+
+def test_collapse_probe_runs_draw_as_the_drive_and_keep_apart(tmp_path):
+    """The collapse probe's own FlowMining runs train with the probe seed's
+    (the first of --seeds) drive seed, not the drive parser's default,
+    under prefixes that the
+    drive's checkpoint search never takes for its own phases; and a
+    retrieval counts as collapsed on non-finite features, a hub share
+    above 0.5 or R@50 below 1."""
+    import torch_collapse_probe as cp
+
+    args = cp.build_parser().parse_args(["--out", str(tmp_path),
+                                         "--seeds", "3", "4"])
+    argv = cp.flowmining_argv(cp.probe_args(args), str(tmp_path),
+                              cp.EPOCHS_PREFIX, "rgb.pth.tar", "flow.pth.tar",
+                              2)
+    assert argv[argv.index("--seed") + 1] == "3"
+    assert argv[argv.index("--epochs") + 1] == "2"
+    wd = tmp_path / "wd"
+    for i, prefix in enumerate(["cyc_cf", cp.EPOCHS_PREFIX, cp.FP32_PREFIX]):
+        ck = wd / f"log-{prefix}" / "exp" / "model" / "epoch5.pth.tar"
+        ck.parent.mkdir(parents=True)
+        ck.write_bytes(b"")
+        os.utime(ck, (1000 + i, 1000 + i))  # the probe's are newer
+    assert "log-cyc_cf/" in drive_coclr_cycle.latest_ckpt(str(wd), "cyc_cf")
+    assert cp.collapsed({"R@50": 0.9})
+    assert cp.collapsed({"R@50": 1.0, "features": {"hub_share": 0.6}})
+    assert cp.collapsed({"nonfinite_features": True,
+                         "features": {"hub_share": None}})
+    assert not cp.collapsed({"R@50": 1.0, "features": {"hub_share": 0.5}})
+
+
+def test_collapse_probe_drives_never_share_a_workdir(tmp_path, monkeypatch):
+    """Without --workroot each probe gets a new directory under the
+    temporary directory; a given --workroot that already holds a seed's
+    workdir is refused, so that no drive resumes from another run's logs
+    and checkpoints."""
+    import torch_collapse_probe as cp
+
+    monkeypatch.setattr(cp.tempfile, "tempdir", str(tmp_path))
+    roots = []
+    for _ in range(2):
+        args = cp.build_parser().parse_args(["--out", str(tmp_path / "o")])
+        assert cp.make_workroot(args)
+        roots.append(args.workroot)
+    assert roots[0] != roots[1]
+    assert all(os.path.dirname(r) == str(tmp_path) for r in roots)
+    given = tmp_path / "given"
+    args = cp.build_parser().parse_args(
+        ["--out", str(tmp_path / "o"), "--workroot", str(given),
+         "--seeds", "3", "4"])
+    assert not cp.make_workroot(args)
+    (given / "cp4").mkdir(parents=True)
+    with pytest.raises(SystemExit, match="cp4"):
+        cp.make_workroot(args)
+
+
 # ------------------------------------------------------------ resume rules
 
 
@@ -608,7 +765,7 @@ def test_cpu_drive_end_to_end_and_its_checkpoint_chain(tmp_path):
     lines, both CoCLR logs carry Self-acc@1, FlowMining's sampler is the
     flow init's encoder_q bit for bit and its encoder_q moved, RGBMining's
     (--reverse) sampler is FlowMining's encoder_q and its encoder_q moved,
-    and all four retrievals give R@1 in [0, 1]."""
+    and all four retrievals give R@1 in [0, 1] over finite features."""
     wd = tmp_path / "cyc"
     out = subprocess.run(
         [sys.executable, "-m", "coclr_tpu_torch.tools.drive_coclr_cycle",
@@ -631,6 +788,7 @@ def test_cpu_drive_end_to_end_and_its_checkpoint_chain(tmp_path):
     retr = [t for t in rep["phases"] if t.startswith("retrieval_")]
     assert len(retr) == 4
     assert all(0.0 <= rep["phases"][t]["R@1"] <= 1.0 for t in retr)
+    assert all(rep["phases"][t]["features"]["finite"] for t in retr)
     chain, paths = drive_coclr_cycle.checkpoint_chain(str(wd))
     assert chain == dict.fromkeys(chain, True) and len(chain) == 4
     assert "-R_" in paths["rgbmining"]  # the --reverse experiment
