@@ -31,7 +31,12 @@ non-zero exit on failure:
 4. InfoNCE: run_pretrain at full width (S3D, seq_len 32, img_dim 128,
    batch 32, moco-k 2048, moco-dim 128, bfloat16) for 12 steps on a
    synthetic two-stream UCF LMDB, with the launch counts of both kernels,
-   and the epoch checkpoint read back; then the step on a device-resident
+   and the epoch checkpoint read back (on one card the step runs as a
+   CUDA graph after its warm-ups: the wrappers count the launches of the
+   steps that call them, and each 12-step loop of run_pretrain here on one
+   card traces its last TRACED steps with --profile_steps, whose device
+   trace must show as many launches a step, replays included);
+   then the step on a device-resident
    batch, and a torch.profiler window over 3 such steps, read by the
    package's trace reader (coclr_tpu_torch/utils/profiling.py): each
    kernel's device time and launches in the step, the device's busy share,
@@ -146,7 +151,8 @@ non-zero exit on failure:
    are finite (their health from the drive report is printed: std after
    centering, effective rank, hub share), and each process launched
    the kernels its steps need (COCLR_KERNEL_COUNTS: jitter once a training
-   step and pool1d_bwd 37 times, gated or not; in retrieval jitter once
+   step and pool1d_bwd 37 times, gated or not, bar the replays of the
+   step's CUDA graph that the epoch line counts; in retrieval jitter once
    per 32 clips and no pool); its wall time and each process's;
 14. one JSON line {"kernels": [...]} with each kernel's launches (per path
    and per step), error against its plain version and times against its
@@ -162,6 +168,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -176,6 +183,7 @@ JITTER_OPS = {"load": 3, "brightness": 9, "contrast": 12, "saturation": 18,
               "hue": 58, "gray": 3, "normalize": 6, "mean": 6}
 
 T, S, B, K, DIM = 32, 128, 32, 2048, 128
+TRACED = 2  # the last steps of a counted loop that its device trace holds
 
 # (P, N, Q, k, s, lo) beside the main path's shapes, one for each tiling of
 # the pool kernel (kernels/pool.py plan): whole planes with 16-byte staging
@@ -657,27 +665,61 @@ def counted(fn, work):
     return out, counts, sec, peak
 
 
-def run_counted(cfg, work, steps, **kw):
-    """run_pretrain through `counted`; returns (model, info, counts per
-    step, counts, peak device memory)."""
-    from coclr_tpu_torch.train.pretrain import run_pretrain
+def run_counted(cfg, work, steps, trace=True, **kw):
+    """run_pretrain through `counted`; returns (model, info, launches per
+    step, counts, peak device memory). The launches per step are the
+    wrappers' counts over the steps that called them: jitter (the eager
+    preprocess) every step, the pool kernel every step but the replays of
+    the step's CUDA graph (info["step_graph"]), which launch it from the
+    device without its wrapper. With `trace` (a run as long as the epoch,
+    which places the window) the run's last TRACED steps, unless cfg traces
+    steps of its own, are traced with --profile_steps, and the device
+    trace must show each kernel as many times a step as the wrappers
+    launched it."""
+    import dataclasses
 
+    from coclr_tpu_torch.train.pretrain import run_pretrain
+    from coclr_tpu_torch.utils.profiling import read_trace
+
+    if trace and not cfg.profile_steps:
+        cfg = dataclasses.replace(cfg, profile_steps=TRACED)
     (model, _, info), counts, _, peak = counted(
         lambda: run_pretrain(cfg, max_steps=steps, device="cuda", **kw), work)
     n = len(info["step_s"])
     check(n == steps, f"{n} steps ran, not {steps}")
     check(math.isfinite(info["loss"]), f"loss is not finite: {info['loss']}")
-    per_step = {name: c / n for name, c in counts.items()}
+    modes = info["step_graph"]
+    launching = n - modes.count("replay")
+    per_step = {"jitter": counts["jitter"] / n,
+                "pool1d_bwd": counts["pool1d_bwd"] / launching}
+    info["loop_step_s"] = info["step_s"]
+    if trace:
+        k = cfg.profile_steps
+        kernels = read_trace(os.path.join(work, info["trace"]), k)["kernels"]
+        seen = {name: kernels.get(name + "_kernel", {}).get(
+            "launches_per_step", 0) for name in per_step}
+        check(seen == per_step,
+              f"launches per step in the device trace of steps "
+              f"{n - k}-{n - 1} ({modes[-k:]}): {seen}; the wrappers' "
+              f"{per_step} over {launching} steps of {n} ({modes})")
+        info["loop_step_s"] = info["step_s"][:-k]
     info["model_path"] = os.path.join(work, info["exp_path"], "model")
     return model, info, per_step, counts, peak
 
 
 def loop_line(tag, info, peak, clips=2 * B):
-    step_ms = statistics.median(info["step_s"][2:]) * 1e3
-    print(f"[{tag}] {len(info['step_s'])} steps, mean loss {info['loss']:.4f} "
-          f"(finite); median step {step_ms:.1f} ms after 2 warm-up steps = "
-          f"{clips / step_ms * 1e3:.1f} clips/s; peak device memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
+    """Prints the loop's median step after 2 warm-up steps, leaving out
+    the steps that run_counted traced."""
+    step_ms = statistics.median(info.get("loop_step_s",
+                                         info["step_s"])[2:]) * 1e3
+    graph = ""
+    if "step_graph" in info:
+        graph = (f" ({info['step_graph'].count('replay')} replays of the "
+                 f"step's CUDA graph)")
+    print(f"[{tag}] {len(info['step_s'])} steps{graph}, mean loss "
+          f"{info['loss']:.4f} (finite); median step {step_ms:.1f} ms after 2 "
+          f"warm-up steps = {clips / step_ms * 1e3:.1f} clips/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
     return step_ms
 
 
@@ -794,7 +836,9 @@ def phase_ubernce(dev, work, data_root):
     cfg = full_width("ubernce", data_root)
     loader = RecordingLoader(Loader(build_dataset(cfg), batch_size=B,
                                     num_workers=cfg.workers, seed=cfg.seed))
+    # 6 steps end before the --profile_steps window of the 12-batch epoch
     model, info, per_step, counts, peak = run_counted(cfg, work, 6,
+                                                      trace=False,
                                                       loader=loader)
     check(per_step == {"jitter": 1, "pool1d_bwd": 37},
           f"unexpected UberNCE launches per step: {per_step}")
@@ -933,7 +977,9 @@ def phase_resnet(dev, work, data_root):
     expect = {"jitter": 1, "pool1d_bwd": 2}
     paths = {}
     cfg = full_width("infonce", data_root, net="r50")
-    _, info, per_step, counts, peak = run_counted(cfg, work, 6)
+    # 6 steps end before the --profile_steps window of the 12-batch epoch;
+    # phase_profile traces r50's replays through the profile tool
+    _, info, per_step, counts, peak = run_counted(cfg, work, 6, trace=False)
     check(per_step == expect, f"[r50] unexpected launches per step: {per_step}")
     step_ms = loop_line("r50", info, peak)
     ckpt_path = os.path.join(info["model_path"], "epoch0.pth.tar")
@@ -1286,7 +1332,8 @@ def ddp_rank(rank, world_size, backend, port, out, data_root, pretrained):
     res = {"rank": rank}
 
     cfg = full_width("infonce", data_root, dist_backend=backend)
-    model, info, per_step, counts, peak = run_counted(cfg, work, 6)
+    model, info, per_step, counts, peak = run_counted(cfg, work, 6,
+                                                      trace=False)
     world = dist.maybe_initialize(dev, backend)
     check(world is not None and world.size == world_size
           and tdist.get_backend() == backend,
@@ -2333,10 +2380,18 @@ def phase_drive(work):
 
     # every training step runs the backward (a gated CoCLR step skips only
     # the optimizer step), so each launches jitter once and the pool 37
-    # times; retrieval launches jitter once per 32 clips and no pool
+    # times, bar the replays of the step's CUDA graph, which launch the
+    # pool from the device (the epoch line counts them); retrieval
+    # launches jitter once per 32 clips and no pool
     steps = DRIVE_TRAIN // B
     retr = -(-DRIVE_TRAIN // CLIP_BATCH) - (-DRIVE_TEST // CLIP_BATCH)
-    expect = {tag: {"jitter": steps, "pool1d_bwd": 37 * steps}
+    replays = {tag: sum(map(int, re.findall(r"^Epoch: \[\d+\]\[\d+\] "
+                                            r"T-epoch:\S+ captures:\d+ "
+                                            r"replays:(\d+)$", logs[tag],
+                                            re.M)))
+               for tag in DRIVE_TRAIN_TAGS.values()}
+    expect = {tag: {"jitter": steps,
+                    "pool1d_bwd": 37 * (steps - replays[tag])}
               for tag in DRIVE_TRAIN_TAGS.values()}
     expect.update({tag: {"jitter": retr, "pool1d_bwd": 0}
                    for tag in DRIVE_RETRIEVALS})
@@ -2354,7 +2409,8 @@ def phase_drive(work):
     print(f"[drive] every phase exited 0 with progress lines; Self-acc@1 "
           f"logged in both CoCLR phases; checkpoint chain {chain} (encoder_q "
           f"moves only in the {steps - gated} gate-open steps of {steps}); "
-          f"R@1 {recall}; launches per process {by_phase}", flush=True)
+          f"R@1 {recall}; launches per process {by_phase}; step graph "
+          f"replays per process {replays}", flush=True)
     return {"counts": counts}
 
 
@@ -2478,9 +2534,18 @@ def phase_profile(work, data_root, paths):
         line, counts, sec, _ = counted(lambda: profile_step.main(
             argv + ["--steps", "3", "--topk", "10", "--logdir", logdir]), work)
         pool = 2 if name.startswith("r50") else 37
-        check(counts == {"jitter": 6, "pool1d_bwd": 6 * pool},
-              f"[profile-tool] {name}: launches in 3 warm-up and 3 traced "
-              f"steps: {counts}")
+        # the wrappers launch in every step but the graph's replays (warm-up
+        # steps included), and the trace shows both kernels in every traced
+        # step
+        steps, warm = 3 + line["warmup_steps"], line["warmup_steps"]
+        launching = steps - line["replayed_steps"]
+        check(counts == {"jitter": steps, "pool1d_bwd": launching * pool},
+              f"[profile-tool] {name}: launches in {warm} warm-up and 3 "
+              f"traced steps ({line['replayed_steps']} replays): {counts}")
+        traced = {k: line["launches_per_step"].get(k + "_kernel")
+                  for k in ("jitter", "pool1d_bwd")}
+        check(traced == {"jitter": 1, "pool1d_bwd": pool},
+              f"[profile-tool] {name}: launches per traced step: {traced}")
         cats = line["categories_us_per_step"]
         check(cats.get("jitter_kernel", 0) > 0
               and cats.get("pool1d_bwd_kernel", 0) > 0,

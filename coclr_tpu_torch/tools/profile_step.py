@@ -10,15 +10,18 @@ step (`--train_what ft`, SGD at lr 1e-3, wd 1e-3, dropout 0.9, a 101-way
 head), or the pretraining step of infonce, coclr or k400 (InfoNCE with
 moco-k 16384; 2048 for the others; topk 5), in bfloat16 (float32 on the
 CPU, where the repository holds the port in float32). It warms the
-step up for 3 steps, traces `--steps` steps with torch.profiler
-(utils/profiling.py) and reads the trace back.
+step up for 3 steps, and on the card the pretraining step on until it
+replays its CUDA graph (parallel/train_step.py), traces `--steps` steps
+with torch.profiler (utils/profiling.py) and reads the trace back.
 
 Output: one JSON line with the JAX tool's keys (device_us_per_step,
 categories_us_per_step, top_ops_us_per_step, trace_path, workload, steps,
 clips_per_step, wall_us_per_step, clips_per_sec_device), plus `busy` (the
 union of device intervals over the window's wall time), `launches_per_step`
 (host launch calls, device ops, and each of the port's kernels), `device`
-and `net`; a table goes to stderr and the trace stays under --logdir for
+`net`, `warmup_steps` and `replayed_steps` (the steps, warm-ups included,
+that replayed the pretraining step's CUDA graph, whose kernels no wrapper
+launches from the host); a table goes to stderr and the trace stays under --logdir for
 Perfetto. `wall_us_per_step` is the traced window's wall time per step
 with the profiler on, which inflates the host's time: it is not the speed
 of the step or of the loop. `top_ops_us_per_step` lists [name (first 160
@@ -72,7 +75,7 @@ def _build_finetune(dev, net, batch_size, seq_len, img, dtype):
                                   steps.preprocess_train(seq, gen, cfg.dtype),
                                   label, 1e-3, drop_gen=gen)
 
-    return run, box, batch_size
+    return run, box, batch_size, lambda: "eager", False
 
 
 def _build_pretrain(dev, variant, net, batch_size, seq_len, img, dtype):
@@ -82,7 +85,9 @@ def _build_pretrain(dev, variant, net, batch_size, seq_len, img, dtype):
     from coclr_tpu_torch.config import PretrainConfig
     from coclr_tpu_torch.models.moco import MoCo
     from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
-    from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+    from coclr_tpu_torch.parallel.train_step import (graph_engages,
+                                                     make_optimizer,
+                                                     pretrain_step, step_mode)
 
     model_name = "infonce" if variant == "k400" else variant
     cfg = PretrainConfig(net=net, model=model_name, seq_len=seq_len,
@@ -113,7 +118,8 @@ def _build_pretrain(dev, variant, net, batch_size, seq_len, img, dtype):
         box[0] = pretrain_step(model, opt, preprocess(batch, gen), 1e-3, cfg,
                                drop_self=True, update=True)
 
-    return run, box, batch_size * 2
+    return (run, box, batch_size * 2, lambda: step_mode(model),
+            graph_engages(model, dev))
 
 
 def build_parser():
@@ -143,9 +149,10 @@ def main(argv=None) -> dict:
                  seq_len=args.seq_len, img=args.img_dim,
                  dtype="bfloat16" if dev.type == "cuda" else "float32")
     if args.workload == "finetune":
-        run, box, clips = _build_finetune(dev, **shape)
+        run, box, clips, mode, graph = _build_finetune(dev, **shape)
     else:
-        run, box, clips = _build_pretrain(dev, args.workload, **shape)
+        run, box, clips, mode, graph = _build_pretrain(dev, args.workload,
+                                                       **shape)
 
     def fence():
         loss = float(box[0]["loss"])
@@ -153,9 +160,16 @@ def main(argv=None) -> dict:
             raise RuntimeError(f"{args.workload}: the loss is not finite "
                                f"({loss})")
 
-    # warm: cuDNN's choices, allocations and the kernels' builds stay out
-    for i in range(3):
-        run(i)
+    # warm: cuDNN's choices, allocations, the kernels' builds and the
+    # pretrain step's CUDA graph capture stay out
+    warm, modes = 0, []
+    while warm < 3 or (graph and modes[-1] != "replay"):
+        if warm == 16:
+            raise RuntimeError(f"{args.workload}: the step did not replay "
+                               f"its CUDA graph in {warm} warm-up steps")
+        run(warm)
+        modes.append(mode())
+        warm += 1
     fence()
 
     logdir = args.logdir or tempfile.mkdtemp(prefix="coclr_prof_")
@@ -163,6 +177,7 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         for i in range(args.steps):
             run(100 + i)
+            modes.append(mode())
         fence()
         wall = time.perf_counter() - t0
     prof = profiling.read_trace(window.path, args.steps, args.topk,
@@ -189,6 +204,8 @@ def main(argv=None) -> dict:
             **{k: v["launches_per_step"] for k, v in prof["kernels"].items()}},
         "device": dev.type,
         "net": args.net,
+        "warmup_steps": warm,
+        "replayed_steps": modes.count("replay"),
     }
     for k, v in out["categories_us_per_step"].items():
         sys.stderr.write(f"{k:>28s}  {v:>10.1f} us/step\n")

@@ -48,7 +48,8 @@ from coclr_tpu_torch.models.moco import (MoCo, draw_shuffle,
                                          draw_shuffle_alltoall, shuffle_mode)
 from coclr_tpu_torch.ops.augment import make_pretrain_preprocess
 from coclr_tpu_torch.parallel import dist
-from coclr_tpu_torch.parallel.train_step import make_optimizer, pretrain_step
+from coclr_tpu_torch.parallel.train_step import (make_optimizer, pretrain_step,
+                                                  step_mode)
 from coclr_tpu_torch.train import init_surgery
 from coclr_tpu_torch.train.lr import get_lr
 from coclr_tpu_torch.utils import malloc_trim, prepare_run, profiling
@@ -271,7 +272,11 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
     under a distributed launcher. `dataset`, `loader` (this rank's batches)
     and `max_steps` (per epoch) are injectable for tests. Returns
     (model, optimizer, info); info["trace"] is the --profile_steps trace
-    file, or None."""
+    file, or None; info["step_graph"] says how each step ran ('eager',
+    'capture' or 'replay': parallel/train_step.py step_mode), and on a card
+    info["reserved_bytes"] holds the device memory that the caching
+    allocator reserves after each step's dispatch, a CUDA graph's private
+    pool included (empty off the card)."""
     device = prepare_run(device)
     world = dist.maybe_initialize(device, cfg.dist_backend, cfg.num_devices,
                                   cfg.sp_size, cfg.sph_size)
@@ -325,6 +330,8 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
 
     train_acc, train_loss = 0.0, float("nan")
     step_s = []
+    step_graph = []
+    reserved_bytes = []
     trace = None
     preempted = False
     epoch = start_epoch
@@ -395,6 +402,9 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                         drop_self=drop_self, update=fill is None or fill.full,
                         ddp=ddp, perm=perm,
                         data_group=world.data_group if world else None)
+                step_graph.append(step_mode(model))
+                if device.type == "cuda":
+                    reserved_bytes.append(torch.cuda.memory_reserved(device))
                 if window is not None \
                         and idx == prof_at + cfg.profile_steps - 1:
                     trace = close_trace(window, cfg.profile_steps)
@@ -442,8 +452,10 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                 break
 
             malloc_trim()
+            modes = step_graph[-steps_this_epoch:] if steps_this_epoch else []
             print(f"Epoch: [{epoch}][{steps_this_epoch}] T-epoch:"
-                  f"{time.time() - tic:.2f}")
+                  f"{time.time() - tic:.2f} captures:{modes.count('capture')} "
+                  f"replays:{modes.count('replay')}")
             logger.log(f"epoch {epoch} loss {meters['Loss'].avg:.4f} "
                        f"top1 {meters['acc@1'].avg:.4f}")
             plotter.add_data("global/loss", meters["Loss"].avg, epoch)
@@ -473,4 +485,5 @@ def run_pretrain(cfg: PretrainConfig, dataset=None, max_steps: int = 0,
                               "train_acc": train_acc, "loss": train_loss,
                               "preempted": preempted, "step_s": step_s,
                               "iteration": iteration, "ranks": ranks,
-                              "trace": trace}
+                              "trace": trace, "step_graph": step_graph,
+                              "reserved_bytes": reserved_bytes}
