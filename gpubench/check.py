@@ -13,11 +13,12 @@ Numbers compared (each against a limit in limits/<cell>.json):
   the benchmark's own (exact: limit 0);
 - `aug`: the largest absolute gap of the first step's augmented clips;
 - `stem`: the relative gap (Frobenius) of the first step's output of
-  encoder_q's first block (reference/models.py STEM), rows missing from
-  the program's counted whole;
+  encoder_q's first block (the STEM of the backbone's
+  reference/nets/<net>.py), rows missing from the program's counted whole;
 - `pool_bwd`: the largest gap of the pool-backward kernel's output at four
   of its first step's launches against reference/pool.py on the same
-  inputs (exact);
+  inputs (exact); read only where the step launched the kernel (a backbone
+  with no max pool launches none);
 - `update_median`: by the median leaf of encoder_q, the gap between the
   norms of each parameter's change over the steps, over the larger of the
   reference leaf's and the median leaf's, leaving out leaves whose
@@ -149,8 +150,7 @@ def run_reference(cell, recorded, device, prec=FP32, start=None):
         del aug
         if j == 0:
             with torch.no_grad():
-                stem = models.stem(ref.enc_q, config["net"], views["x1"],
-                                   prec).cpu()
+                stem = models.stem(ref.enc_q, views["x1"], prec).cpu()
         loss, taken, k = ref.step(views, config["lr"], config, prec,
                                   drop_self=drop_self_draw(step))
         losses.append(loss)
@@ -380,8 +380,11 @@ def local_numbers(cap: dict, cell: dict, device) -> dict:
 
 def judge(values: dict, limits: dict):
     """(correct, {name: {value, limit}}) over the numbers that have a
-    limit; a number without one is not compared."""
-    shown = {k: {"value": values[k], "limit": limits[k]}
-             for k in values if k in limits}
-    ok = all(v["value"] <= v["limit"] for v in shown.values()) and bool(shown)
+    limit; a number without one is not compared, and a limit whose number
+    was not read (value None) fails."""
+    names = [k for k in values if k in limits] + [
+        k for k in limits if k not in values]
+    shown = {k: {"value": values.get(k), "limit": limits[k]} for k in names}
+    ok = all(v["value"] is not None and v["value"] <= v["limit"]
+             for v in shown.values()) and bool(shown)
     return ok, shown

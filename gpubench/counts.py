@@ -2,7 +2,8 @@
 operations, and the bytes of the two hand-written kernels' launches.
 
 - FLOPs: torch.utils.flop_counter.FlopCounterMode over the plain reference
-  model (reference/models.py) on the meta device, at the cell's shapes: the
+  model (reference/models.py, with the backbone of reference/nets/<net>.py)
+  on the meta device, at the cell's shapes: the
   query encoder's forward and backward, the key encoder's forward (and for
   CoCLR the sampler's), and the logits over the queue. Counted once, as the
   algorithm needs them; a recomputation would not be counted.
@@ -11,8 +12,9 @@ operations, and the bytes of the two hand-written kernels' launches.
   aac8d1afaaa1f842512867f379867b56b8e4edf4):
   * jitter: uint8 frames [F, 3, S, S] in, bfloat16 out, six 4-byte
     per-frame parameters;
-  * pool backward: every max pool of the query encoder as separable 1-D
-    pools in T, H, W order (kernels/pool.py max_pool_3d), each reading x
+  * pool backward: every max pool of the query encoder (each
+    models.MaxPool3d; a backbone with none launches nothing) as separable
+    1-D pools in T, H, W order (kernels/pool.py max_pool_3d), each reading x
     [P, N, Q], out and g [P, M, Q] and writing dx [P, N, Q].
 - Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense).
 """

@@ -1,15 +1,15 @@
-"""Plain PyTorch reference of the pretraining encoders: S3D and
-ResNet-2d3d-50 backbones, the projection head, and their initial weights
-drawn from the seed.
+"""Plain PyTorch reference of the pretraining encoders: a backbone, found
+by the configuration's `net` as nets/<net>.py (`load_net`), the projection
+head, and their initial weights drawn from the seed; and the layers that
+the backbones share.
 
-Frozen copy of the architectures of coclr_tpu_torch/backbones/s3d.py,
-coclr_tpu_torch/backbones/resnet2d3d.py and coclr_tpu_torch/models/encoder.py
-at commit aac8d1afaaa1f842512867f379867b56b8e4edf4 (the reference's
-backbone/s3dg.py and backbone/resnet_2d3d.py), rewritten without the port's
+Frozen copy of coclr_tpu_torch/models/encoder.py at commit
+aac8d1afaaa1f842512867f379867b56b8e4edf4, rewritten without the port's
 kernels, folded BatchNorm or sequence parallelism: float32 convolutions,
-torch's own batch norm and 3-D max pool. Modules are registered in the
-port's order, so `init_` draws every weight from the seed's generator in
-the same sequence as the port does. Imports nothing of the port.
+torch's own batch norm and 3-D max pool. Each backbone registers its
+modules in the port's order, so `init_` draws every weight from the seed's
+generator in the same sequence as the port does. Imports nothing of the
+port.
 
 `Precision` puts the control in place: with `fp8` set, every convolution and
 matmul of the encoders reads its operands rounded to float8 e4m3 (per-tensor
@@ -19,7 +19,10 @@ training recipe, one step below the bfloat16 the configurations state.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -90,24 +93,6 @@ class BasicConv3d(nn.Module):
         return torch.relu(bn(self.bn, conv(self.conv, x, prec)))
 
 
-class STConv3d(nn.Module):
-    """(1, k, k) conv + BN + ReLU, then (k, 1, 1) conv + BN + ReLU."""
-
-    def __init__(self, cin, cout, k, stride, p):
-        super().__init__()
-        t_stride, s_stride = stride
-        self.conv1 = nn.Conv3d(cin, cout, (1, k, k), (1, s_stride, s_stride),
-                               (0, p, p), bias=False)
-        self.bn1 = nn.BatchNorm3d(cout)
-        self.conv2 = nn.Conv3d(cout, cout, (k, 1, 1), (t_stride, 1, 1),
-                               (p, 0, 0), bias=False)
-        self.bn2 = nn.BatchNorm3d(cout)
-
-    def forward(self, x, prec):
-        x = torch.relu(bn(self.bn1, conv(self.conv1, x, prec)))
-        return torch.relu(bn(self.bn2, conv(self.conv2, x, prec)))
-
-
 class MaxPool3d(nn.Module):
     """One 3-D max pool (implicit -inf padding). `record`, where set, is a
     list that collects (input shape, window, strides, padding) per call: how
@@ -126,162 +111,60 @@ class MaxPool3d(nn.Module):
         return F.max_pool3d(x, self.window, self.strides, self.padding)
 
 
-class SepInception(nn.Module):
-    def __init__(self, cin, planes):
-        super().__init__()
-        b0, b1a, b1b, b2a, b2b, b3b = planes
-        self.branch0 = nn.Sequential(BasicConv3d(cin, b0, 1))
-        self.branch1 = nn.Sequential(BasicConv3d(cin, b1a, 1),
-                                     STConv3d(b1a, b1b, 3, (1, 1), 1))
-        self.branch2 = nn.Sequential(BasicConv3d(cin, b2a, 1),
-                                     STConv3d(b2a, b2b, 3, (1, 1), 1))
-        self.branch3 = nn.Sequential(MaxPool3d((3, 3, 3), (1, 1, 1), (1, 1, 1)),
-                                     BasicConv3d(cin, b3b, 1))
-
-    def forward(self, x, prec):
-        outs = []
-        for branch in (self.branch0, self.branch1, self.branch2, self.branch3):
-            y = x
-            for mod in branch:
-                y = mod(y, prec)
-            outs.append(y)
-        return torch.cat(outs, dim=1)
+EXPORTS = ("Backbone", "FEATURES", "pool", "init_", "STEM", "stem")
+NETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nets")
 
 
-class S3D(nn.Module):
-    """S3D without gating; [B, 3, T, H, W] -> [B, 1024, T/8, H/32, W/32].
-    Each member is registered twice (as the reference's state_dict has it),
-    which decides the order in which `init_` reaches the convolutions."""
-
-    def __init__(self):
-        super().__init__()
-        self.Conv_1a = STConv3d(3, 64, 7, (2, 2), 3)
-        self.block1 = nn.Sequential(self.Conv_1a)
-        self.MaxPool_2a = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
-        self.Conv_2b = BasicConv3d(64, 64, 1)
-        self.Conv_2c = STConv3d(64, 192, 3, (1, 1), 1)
-        self.block2 = nn.Sequential(self.MaxPool_2a, self.Conv_2b, self.Conv_2c)
-        self.MaxPool_3a = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
-        self.Mixed_3b = SepInception(192, [64, 96, 128, 16, 32, 32])
-        self.Mixed_3c = SepInception(256, [128, 128, 192, 32, 96, 64])
-        self.block3 = nn.Sequential(self.MaxPool_3a, self.Mixed_3b,
-                                    self.Mixed_3c)
-        self.MaxPool_4a = MaxPool3d((3, 3, 3), (2, 2, 2), (1, 1, 1))
-        self.Mixed_4b = SepInception(480, [192, 96, 208, 16, 48, 64])
-        self.Mixed_4c = SepInception(512, [160, 112, 224, 24, 64, 64])
-        self.Mixed_4d = SepInception(512, [128, 128, 256, 24, 64, 64])
-        self.Mixed_4e = SepInception(512, [112, 144, 288, 32, 64, 64])
-        self.Mixed_4f = SepInception(528, [256, 160, 320, 32, 128, 128])
-        self.block4 = nn.Sequential(self.MaxPool_4a, self.Mixed_4b,
-                                    self.Mixed_4c, self.Mixed_4d,
-                                    self.Mixed_4e, self.Mixed_4f)
-        self.MaxPool_5a = MaxPool3d((2, 2, 2), (2, 2, 2), (0, 0, 0))
-        self.Mixed_5b = SepInception(832, [256, 160, 320, 32, 128, 128])
-        self.Mixed_5c = SepInception(832, [384, 192, 384, 48, 128, 128])
-        self.block5 = nn.Sequential(self.MaxPool_5a, self.Mixed_5b,
-                                    self.Mixed_5c)
-
-    def forward(self, x, prec=FP32):
-        for block in (self.block1, self.block2, self.block3, self.block4,
-                      self.block5):
-            for mod in block:
-                x = mod(x, prec)
-        return x
+def load_net(name: str):
+    """nets/<name>.py, the reference of the backbone that a configuration's
+    `net` names, loaded by file path. It exports `Backbone` (built with no
+    arguments; forward(x, prec)), `FEATURES` (the pooled feature size),
+    `pool(h)` (the backbone's output to [B, FEATURES]), `init_(backbone,
+    gen)` (its weights drawn from `gen` in the port's module order), `STEM`
+    (the port's encoder key of its first block) and `stem(backbone, x,
+    prec)` (that block's output)."""
+    return _load(os.path.join(NETS, name + ".py"), name)
 
 
-class Bottleneck(nn.Module):
-    """ResNet-2d3d bottleneck: 2D ((1,1,1) conv1) or 3D ((3,1,1) conv1),
-    then (1,3,3) conv2 with the spatial stride, then (1,1,1) conv3."""
-
-    def __init__(self, cin, planes, is_3d, stride=1, final_relu=True):
-        super().__init__()
-        cout = planes * 4
-        if is_3d:
-            self.conv1 = nn.Conv3d(cin, planes, (3, 1, 1), padding=(1, 0, 0),
-                                   bias=False)
-        else:
-            self.conv1 = nn.Conv3d(cin, planes, (1, 1, 1), bias=False)
-        self.bn1 = nn.BatchNorm3d(planes)
-        self.conv2 = nn.Conv3d(planes, planes, (1, 3, 3), (1, stride, stride),
-                               (0, 1, 1), bias=False)
-        self.bn2 = nn.BatchNorm3d(planes)
-        self.conv3 = nn.Conv3d(planes, cout, (1, 1, 1), bias=False)
-        self.bn3 = nn.BatchNorm3d(cout)
-        self.downsample = None
-        if stride != 1 or cin != cout:
-            self.downsample = nn.Sequential(
-                nn.Conv3d(cin, cout, (1, 1, 1), (1, stride, stride),
-                          bias=False),
-                nn.BatchNorm3d(cout))
-        self.final_relu = final_relu
-
-    def forward(self, x, prec):
-        h = torch.relu(bn(self.bn1, conv(self.conv1, x, prec)))
-        h = torch.relu(bn(self.bn2, conv(self.conv2, h, prec)))
-        h = bn(self.bn3, conv(self.conv3, h, prec))
-        if self.downsample is not None:
-            x = bn(self.downsample[1], conv(self.downsample[0], x, prec))
-        out = h + x
-        return torch.relu(out) if self.final_relu else out
-
-
-class ResNet2d3d(nn.Module):
-    """r50: 2D bottlenecks in layers 1-2, 3D in layers 3-4, (3, 4, 6, 3)
-    blocks; [B, 3, T, H, W] -> [B, 2048, T/2, H/32, W/32]."""
-
-    def __init__(self, blocks_3d=(False, False, True, True),
-                 layers=(3, 4, 6, 3)):
-        super().__init__()
-        self.conv1 = nn.Conv3d(3, 64, (5, 7, 7), (2, 2, 2), (2, 3, 3),
-                               bias=False)
-        self.bn1 = nn.BatchNorm3d(64)
-        self.pool = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
-        cin = 64
-        for li, (planes, is_3d, n) in enumerate(zip((64, 128, 256, 512),
-                                                    blocks_3d, layers)):
-            blocks = []
-            for bi in range(n):
-                blocks.append(Bottleneck(
-                    cin, planes, is_3d, 2 if li > 0 and bi == 0 else 1,
-                    final_relu=not (li == 3 and bi == n - 1)))
-                cin = planes * 4
-            setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
-
-    def forward(self, x, prec=FP32):
-        x = torch.relu(bn(self.bn1, conv(self.conv1, x, prec)))
-        x = self.pool(x, prec)
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            for block in layer:
-                x = block(x, prec)
-        return torch.relu(x)
-
-
-BACKBONES = {"s3d": (S3D, 1024), "r50": (ResNet2d3d, 2048)}
+@functools.lru_cache(maxsize=None)
+def _load(path: str, name: str):
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no reference network {name!r}: write {path}, "
+                                f"exporting {', '.join(EXPORTS)}")
+    spec = importlib.util.spec_from_file_location("gpubench_net_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [n for n in EXPORTS if not hasattr(mod, n)]
+    if missing:
+        raise AttributeError(f"{path} does not export {', '.join(missing)}")
+    return mod
 
 
 class Encoder(nn.Module):
-    """backbone -> mean over T, H, W -> fc1 -> ReLU -> fc2; the two fcs are
-    1x1x1 convolutions with bias (the reference's key grammar), applied as
-    matmuls on the pooled features. Returns unnormalised [B, dim]."""
+    """backbone -> its pool to [B, features] -> fc1 -> ReLU -> fc2; the two
+    fcs are 1x1x1 convolutions with bias (the reference's key grammar),
+    applied as matmuls on the pooled features. Returns unnormalised
+    [B, dim]."""
 
     def __init__(self, net: str, dim: int):
         super().__init__()
-        cls, fs = BACKBONES[net]
-        self.backbone = cls()
-        self.fc1 = nn.Conv3d(fs, fs, 1)
-        self.fc2 = nn.Conv3d(fs, dim, 1)
-        self.kaiming = net == "r50"
+        spec = load_net(net)
+        self.net = net
+        self.backbone = spec.Backbone()
+        self.fc1 = nn.Conv3d(spec.FEATURES, spec.FEATURES, 1)
+        self.fc2 = nn.Conv3d(spec.FEATURES, dim, 1)
 
     def forward(self, x, prec=FP32):
-        h = self.backbone(x, prec).mean(dim=(2, 3, 4))
+        h = load_net(self.net).pool(self.backbone(x, prec))
         h = torch.relu(F.linear(prec.op(h), prec.op(self.fc1.weight.flatten(1)),
                                 self.fc1.bias))
         return F.linear(prec.op(h), prec.op(self.fc2.weight.flatten(1)),
                         self.fc2.bias)
 
 
-def _default_init(mod, gen):
-    """torch's default initialiser of a conv with bias, from `gen`."""
+def default_init(mod, gen):
+    """torch's default initialiser of a layer with bias (a convolution or
+    nn.Linear), from `gen`."""
     fan_in = mod.weight[0].numel()
     nn.init.kaiming_uniform_(mod.weight, a=math.sqrt(5), generator=gen)
     bound = 1.0 / math.sqrt(fan_in)
@@ -290,20 +173,12 @@ def _default_init(mod, gen):
 
 @torch.no_grad()
 def init_(enc: Encoder, gen: torch.Generator) -> None:
-    """The reference's initialisers, drawn from `gen` in module order:
-    convolutions N(0, 0.01) (S3D) or kaiming normal with fan_out (r50),
-    BatchNorm weight 1 and bias 0, then the head's default initialiser."""
-    for mod in enc.backbone.modules():
-        if isinstance(mod, nn.Conv3d):
-            if enc.kaiming:
-                nn.init.kaiming_normal_(mod.weight, mode="fan_out",
-                                        nonlinearity="relu", generator=gen)
-            else:
-                nn.init.normal_(mod.weight, 0.0, 0.01, generator=gen)
-        elif isinstance(mod, nn.BatchNorm3d):
-            mod.reset_parameters()
-    _default_init(enc.fc1, gen)
-    _default_init(enc.fc2, gen)
+    """The reference's initialisers, drawn from `gen` in the port's module
+    order: the backbone's own (its nets/ module's `init_`), then the head's
+    default initialiser."""
+    load_net(enc.net).init_(enc.backbone, gen)
+    default_init(enc.fc1, gen)
+    default_init(enc.fc2, gen)
 
 
 def l2_normalize(x, eps: float = 1e-12):
@@ -320,14 +195,7 @@ def ref_name(key: str) -> str:
     return ("backbone." if first == "0" else HEAD[first] + ".") + rest
 
 
-STEM = {"s3d": "0.Conv_1a", "r50": "0.bn1"}
-
-
-def stem(enc: Encoder, net: str, x, prec=FP32):
-    """The first block's output, where STEM names it in the port's
-    encoder: S3D's Conv_1a (both convolutions, BatchNorms and ReLUs),
-    ResNet-2d3d's stem convolution and BatchNorm (before its ReLU)."""
-    b = enc.backbone
-    if net == "s3d":
-        return b.Conv_1a(x, prec)
-    return bn(b.bn1, conv(b.conv1, x, prec))
+def stem(enc: Encoder, x, prec=FP32):
+    """The output of the backbone's first block, the one that its nets/
+    module's STEM names in the port's encoder."""
+    return load_net(enc.net).stem(enc.backbone, x, prec)

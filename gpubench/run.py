@@ -76,8 +76,12 @@ def resolve(workload: str, manifest: dict = None) -> dict:
 def shrink(cell: dict) -> dict:
     """The cell at a size the CPU runs in seconds (tests and rehearsals):
     its widths as published, its clips, batch, queue and data cut down,
-    float32 compute."""
-    c = dict(cell["config"], seq_len=8, img_dim=32, batch_size=4, moco_k=16,
+    float32 compute. The clip's frames and side are the configuration's
+    `cpu_sizes` (`seq_len`, `img_dim`) where it gives them, else 8 and 32."""
+    sizes = dict({"seq_len": 8, "img_dim": 32},
+                 **cell["config"].get("cpu_sizes", {}))
+    c = dict(cell["config"], seq_len=sizes["seq_len"],
+             img_dim=sizes["img_dim"], batch_size=4, moco_k=16,
              compute_dtype="float32")
     t = dict(cell["traffic"], samples=8, epoch_samples=64, videos=4, frames=16,
              frame_hw=[48, 64], texture_scale=4, unique_frames=2, classes=2,
@@ -127,12 +131,14 @@ def port_config(cell: dict, seed: int):
 
 class Context:
     """What a per-layer metric reader reads: the Feed (its waits), the
-    loop's info (step_s), the traced window (trace.Window) and the step's
-    work (work_counts)."""
+    loop's info (step_s), the traced window (trace.Window), the step's
+    work (work_counts) and the cell as resolved (`cell["config"]`,
+    `cell["traffic"]`: the shapes from which a kernel's operations and
+    bytes are counted)."""
 
-    def __init__(self, feed, info, window, counts):
+    def __init__(self, feed, info, window, counts, cell):
         self.feed, self.info = feed, info
-        self.window, self.counts = window, counts
+        self.window, self.counts, self.cell = window, counts, cell
 
     @property
     def window_step_s(self):
@@ -196,7 +202,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool,
 
     from gpubench import check
     from gpubench.feed import Feed, make_resident
-    from gpubench.reference.models import STEM
+    from gpubench.reference.models import load_net
     from gpubench.tap import StepTap
 
     on_card = torch.device(device).type == "cuda"
@@ -217,7 +223,8 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool,
         feed = Feed(loader, t["warm_steps"], t["checked_steps"], seconds,
                     t["trace_steps"] if traced else 0, on_card,
                     first_epoch=1 if start else 0)
-        tap = StepTap(pretrain, t["checked_steps"], fault, STEM[c["net"]],
+        tap = StepTap(pretrain, t["checked_steps"], fault,
+                      load_net(c["net"]).STEM,
                       pool=kernel_pool, moco=port_moco).install()
         tap.local["iteration"] = start["iteration"] if start else 1
         # the checkpoint that run_pretrain writes after the loop (twice:
@@ -253,7 +260,8 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool,
             values.update(check.start_and_fill(run, start, ref.filled))
         got = check.Readings.of_tap(tap)
         values.update(check.numbers(got, ref, device))
-        values["pool_bwd"] = check.pool_gap(tap.pool, device)
+        if tap.pool:
+            values["pool_bwd"] = check.pool_gap(tap.pool, device)
         values.update(check.local_numbers(tap.local, run, device))
         out["worst_leaves"] = check.worst_leaves(got, ref)
         out["values"] = values
@@ -268,7 +276,7 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool,
 
 def per_layer(cell, out):
     feed = out["feed"]
-    ctx = Context(feed, out["info"], feed.window, work_counts(cell))
+    ctx = Context(feed, out["info"], feed.window, work_counts(cell), cell)
     metrics = {}
     for name in cell["per_layer"]:
         value = reader(name)(ctx)

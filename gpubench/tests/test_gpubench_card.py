@@ -30,5 +30,6 @@ def test_control_fails_at_the_cells_size(card, workload):
     ctl = check.run_reference(out["recorded"], out["feed"].recorded, card,
                               prec=check.FP8, start=out["start"])
     values = dict(check.numbers(ctl, out["reference"], card), loader=0.0)
-    ok, shown = check.judge(values, cell["limits"])
+    ok, shown = check.judge(values, {k: v for k, v in cell["limits"].items()
+                                     if k in values})
     assert not ok, shown

@@ -1,10 +1,46 @@
-"""The work counts against hand counts at small shapes."""
+"""The work counts against hand counts at small shapes and against the
+readings of the full-size cells, and the reference's draws against the
+port's for every network that both hold."""
 
+import os
+
+import pytest
 import torch
 from torch import nn
 
-from gpubench import counts
+from gpubench import counts, run
 from gpubench.reference import models
+
+# run.work_counts of each cell at its full size, and its pool-backward
+# launches a step, as the harness read them before the backbones moved
+# into reference/nets/ (on the meta device)
+WORK = {
+    "s3d.infonce.resident": ({"flops": 2927104098304,
+                              "pool_bytes": 5409079296,
+                              "jitter_bytes": 302039040}, 37),
+    "r50.infonce.resident": ({"flops": 7413482651648,
+                              "pool_bytes": 1207959552,
+                              "jitter_bytes": 302039040}, 2),
+    "s3d.coclr.resident": ({"flops": 3678601740288,
+                            "pool_bytes": 5409079296,
+                            "jitter_bytes": 604078080}, 37),
+}
+
+
+def _port_builds(net):
+    from coclr_tpu_torch.backbones import select_backbone
+
+    try:
+        with torch.device("meta"):
+            select_backbone(net)
+    except ValueError:
+        return False
+    return True
+
+
+# every network that reference/nets/ holds and the port builds
+NETS = [name[:-3] for name in sorted(os.listdir(models.NETS))
+        if name.endswith(".py") and _port_builds(name[:-3])]
 
 
 def _conv_flops(enc, x):
@@ -66,20 +102,34 @@ def test_jitter_bytes():
     assert counts.jitter_bytes(10, 8, itemsize=4) == 10 * (192 * 5 + 24)
 
 
-def test_reference_matches_the_port_init():
+@pytest.mark.parametrize("workload", sorted(WORK))
+def test_full_size_work_counts(workload):
+    cell = run.resolve(workload)
+    c = cell["config"]
+    work, launches = WORK[workload]
+    assert run.work_counts(cell) == work
+    assert len(counts.pool_launches(c["net"], c["batch_size"], c["seq_len"],
+                                    c["img_dim"])) == launches
+
+
+def test_nets_cover_the_cells():
+    assert {run.resolve(w)["config"]["net"] for w in WORK} <= set(NETS)
+
+
+@pytest.mark.parametrize("net", NETS)
+def test_reference_matches_the_port_init(net):
     from coclr_tpu_torch.models.moco import MoCo
 
     from gpubench.reference.models import ref_name
     from gpubench.reference.step import RefMoCo
 
     seed = 2 ** 31 + 99
-    for net in ("s3d", "r50"):
-        port = MoCo(net, 16, 32, torch.float32,
-                    gen=torch.Generator().manual_seed(seed), variant="coclr")
-        ref = RefMoCo(net, 16, 32, seed, "coclr", "cpu")
-        mine = dict(ref.enc_q.named_parameters())
-        for name, p in port.encoder_q.named_parameters():
-            assert torch.equal(p.detach(), mine[ref_name(name)].detach()), name
-        assert torch.equal(port.queue, ref.queue)
-        assert torch.equal(port.queue_second, ref.queue_second)
-        assert isinstance(ref.enc_q.backbone, nn.Module)
+    port = MoCo(net, 16, 32, torch.float32,
+                gen=torch.Generator().manual_seed(seed), variant="coclr")
+    ref = RefMoCo(net, 16, 32, seed, "coclr", "cpu")
+    mine = dict(ref.enc_q.named_parameters())
+    for name, p in port.encoder_q.named_parameters():
+        assert torch.equal(p.detach(), mine[ref_name(name)].detach()), name
+    assert torch.equal(port.queue, ref.queue)
+    assert torch.equal(port.queue_second, ref.queue_second)
+    assert isinstance(ref.enc_q.backbone, nn.Module)

@@ -33,7 +33,8 @@ def test_sound_run_is_correct_and_the_control_is_not(workload):
     ctl = check.run_reference(out["recorded"], out["feed"].recorded, "cpu",
                               prec=check.FP8, start=out["start"])
     values = dict(check.numbers(ctl, out["reference"], "cpu"), loader=0.0)
-    ok, shown = check.judge(values, cell["limits"])
+    ok, shown = check.judge(values, {k: v for k, v in cell["limits"].items()
+                                     if k in values})
     assert not ok, shown
 
 

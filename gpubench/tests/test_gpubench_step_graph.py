@@ -35,4 +35,4 @@ def test_the_window_replays_after_the_checked_calls(card, workload):
     window = modes[t["warm_steps"]:t["warm_steps"] + out["steps"]]
     assert out["steps"] > 0 and window == ["replay"] * out["steps"]
     assert run.reader("step.graph_replay_pct")(
-        run.Context(out["feed"], out["info"], None, None)) == 100.0
+        run.Context(out["feed"], out["info"], None, None, cell)) == 100.0
